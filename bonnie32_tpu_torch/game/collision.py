@@ -13,8 +13,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from .._host.models.level import SECTOR_SIZE
+from ..models.level import SECTOR_SIZE
 from ..ops.fixed import f32_to_i32
+from ..types import resolve_device
 
 TERMINAL_VELOCITY = 4000.0  # game/components.rs:39
 _SEC = float(SECTOR_SIZE)
@@ -53,14 +54,19 @@ class PlayerParams(NamedTuple):
     camera_pitch_max: torch.Tensor
 
 
-def player_params(level, device="cpu") -> PlayerParams:
+def player_params(level, device=None) -> PlayerParams:
+    """The level's PlayerSettings on `device` (default: the card)."""
+    device = resolve_device(device)
     s = level.player_settings
     return PlayerParams(**{
         f: torch.tensor(np.float32(getattr(s, f)), device=device)
         for f in PlayerParams._fields})
 
 
-def compile_collision(level, device="cpu") -> CollisionGrid:
+def compile_collision(level, device=None) -> CollisionGrid:
+    """The packed sector and room tables on `device` (default: the
+    card)."""
+    device = resolve_device(device)
     r = max(len(level.rooms), 1)
     gx = max((room.width for room in level.rooms), default=1)
     gz = max((room.depth for room in level.rooms), default=1)

@@ -9,6 +9,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..types import resolve_device
+
 KIND_PLAYER = 1
 TEAM_NEUTRAL, TEAM_PLAYER = 0, 1
 AI_IDLE = 0
@@ -58,8 +60,10 @@ class GameState(NamedTuple):
 
 
 def new_state(n_instances: int, capacity: int = 64,
-              device="cpu") -> GameState:
-    """Empty entity tables for `n_instances` instances."""
+              device=None) -> GameState:
+    """Empty entity tables for `n_instances` instances on `device`
+    (default: the card)."""
+    device = resolve_device(device)
     i, e = n_instances, capacity
     f32, i32, b = torch.float32, torch.int32, torch.bool
 

@@ -89,3 +89,13 @@ def batch_prep(src, n_faces: int, device="cpu") -> rb.BatchPrep:
         count=_t(ctrl[:, k_count, 0].astype(np.int32), device),
         order=_t(order, device), ctrl=_t(port_ctrl, device),
         attrs=_t(attrs, device))
+
+
+def trans_prep(src, n_entries: int, device="cpu") -> rb.TransPrep:
+    """The JAX TransPrep (batched over instances: (I, 8, NTp) i32 and
+    (I, 12, NTp) f32, padded to a multiple of 8 entries) in the port's
+    (I, NT, cols) layout, without the padding."""
+    tctrl = np.asarray(src.tctrl)[:, :, :n_entries].transpose(0, 2, 1)
+    tfscal = np.asarray(src.tfscal)[:, :, :n_entries].transpose(0, 2, 1)
+    return rb.TransPrep(tctrl=_t(tctrl.astype(np.int32), device),
+                        tfscal=_t(tfscal.astype(np.float32), device))

@@ -12,7 +12,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
-from .._host.config import BlendMode
+from ..config import BlendMode
 from ..types import CameraArrays, FaceArrays, Lights, MeshArrays, \
     TextureAtlas
 

@@ -9,9 +9,13 @@ compile-time folds (vc/sh/tex_wh/bt_const) are not carried over: the CUDA
 kernels read the flat atlas and evaluate the general expressions, which
 the folds only specialised.
 
-`render_level_flat` runs the ported slice only: opaque faces under a
-z-buffer, affine textures, constant background.  Every other
-configuration raises NotImplementedError.
+`render_level_flat` routes as the JAX package's kernel path does:
+visibility, resolve, then the ordered composite of the transparent faces;
+painter's mode through the painter's visibility; x-ray as the composite
+of every face onto the background.  Affine textures and a constant
+background only: every configuration the JAX package would hand to its
+sequential renderer, and every one not ported yet, raises
+NotImplementedError.
 """
 
 import dataclasses
@@ -20,14 +24,15 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from .._host.config import BlendMode, NEAR_PLANE, RasterSettings, \
+from ..config import BlendMode, NEAR_PLANE, RasterSettings, \
     ShadingMode
 from ..ops import raster_batch as rb
 from ..ops.lighting import normalize_rows, shade_points
 from ..ops.surface import _apply_fog_to_color, _fog_factor
 from ..ops.vertex import transform_vertices
 from ..types import (CameraArrays, FaceArrays, FrameBuffers, Lights,
-                     MeshArrays, Surfaces, TextureAtlas, to_device)
+                     MeshArrays, Surfaces, TextureAtlas, resolve_device,
+                     to_device)
 from . import build
 
 F32 = np.float32
@@ -73,7 +78,11 @@ class FlatSceneStatic:
 
     n_faces: int
     n_textures: int
-    transparent_idx: Tuple[int, ...]   # faces for the (unported) phase 3
+    transparent_idx: Tuple[int, ...]   # static transparent-face list
+    # True when every transparent face lives in the final draw group, so
+    # opaque-then-transparent matches the reference's per-room interleave
+    transparent_last: bool
+    n_draw_groups: int = 1             # rooms (+ placed asset parts)
 
 
 def _room_fog_params(room):
@@ -89,10 +98,12 @@ def _room_fog_params(room):
 def compile_level_flat(level, textures, resolve,
                        light_specs: Optional[List[dict]] = None,
                        asset_library=None, light_pad: int = 8,
-                       device="cpu") -> Tuple[FlatScene, FlatSceneStatic]:
-    """Level -> (FlatScene on `device`, FlatSceneStatic).  `textures` are
-    (pixels15, blend) tuples or objects with `.pixels15`; `resolve` maps a
-    TextureRef to (texture id, width) as in the JAX package."""
+                       device=None) -> Tuple[FlatScene, FlatSceneStatic]:
+    """Level -> (FlatScene on `device` (default: the card),
+    FlatSceneStatic).  `textures` are (pixels15, blend) tuples or objects
+    with `.pixels15`; `resolve` maps a TextureRef to (texture id, width)
+    as in the JAX package."""
+    device = resolve_device(device)
     if asset_library is not None:
         raise NotImplementedError(f"placed asset draws {_LATER}")
     tex_list = [t if isinstance(t, tuple) else (t.pixels15, 0)
@@ -101,6 +112,23 @@ def compile_level_flat(level, textures, resolve,
     for room in level.rooms:
         verts, faces = room.to_render_data(resolve)
         groups.append((verts, faces, _room_fog_params(room), room.ambient))
+    scene, static = _compile_groups(groups, tex_list, light_specs, light_pad)
+    return to_device(scene, device), static
+
+
+def compile_scene_flat(verts, faces, textures, light_specs=None,
+                       ambient: float = 0.3, light_pad: int = 8,
+                       device=None) -> Tuple[FlatScene, FlatSceneStatic]:
+    """One raw mesh (vertex/face dicts as tests/scenes.py builds them, and
+    (pixels15, blend) textures) -> (FlatScene on `device` (default: the
+    card), FlatSceneStatic), one draw group without fog.  The default
+    ambient is build.lights_from_list's 0.3, so raw-mesh scenes shade as
+    through the per-mesh path."""
+    device = resolve_device(device)
+    tex_list = [t if isinstance(t, tuple) else (t.pixels15, 0)
+                for t in textures]
+    fog_row = (False, 0.0, 0.0, 3.4e38, (0, 0, 0))
+    groups = [(list(verts), [dict(f) for f in faces], fog_row, ambient)]
     scene, static = _compile_groups(groups, tex_list, light_specs, light_pad)
     return to_device(scene, device), static
 
@@ -169,6 +197,8 @@ def _compile_groups(groups, tex_list, light_specs, light_pad):
                            != int(BlendMode.OPAQUE)))
               | (face_bm != int(BlendMode.OPAQUE)) | (ea < 255))
     tr_idx = tuple(int(i) for i in np.where(has_tr)[0])
+    last_start = len(all_f) - len(groups[-1][1])
+    tr_last = all(i >= last_start for i in tr_idx)
 
     # camera-independent shade tables, both normal orientations; the flat
     # average of the swapped corners sums in the swapped order (0,2),1
@@ -202,7 +232,8 @@ def _compile_groups(groups, tex_list, light_specs, light_pad):
         fshade=fshade, fshade_neg=fshade_neg)
     static = FlatSceneStatic(
         n_faces=len(all_f), n_textures=int(atlas.offset.shape[0]),
-        transparent_idx=tr_idx)
+        transparent_idx=tr_idx, transparent_last=tr_last,
+        n_draw_groups=len(groups))
     return scene, static
 
 
@@ -293,23 +324,42 @@ def build_surfaces_flat(scene: FlatScene, cams: CameraArrays,
         valid=valid, key_possible=faces.key_possible)
 
 
+def kernel_path_ok(static: FlatSceneStatic,
+                   settings: RasterSettings) -> bool:
+    """Whether the JAX package takes its kernel path (scene_flat.
+    kernel_path_ok) for this level and these settings; where it does not,
+    it runs its sequential renderer, which is not ported.  The port has no
+    face-table segments and no packed texel encodings, so only these
+    conditions remain: no ortho projection; backface wireframes in one
+    draw group only; x-ray with affine UVs; otherwise every transparent
+    face in the final draw group."""
+    if settings.ortho_projection is not None:
+        return False
+    if (settings.backface_cull and settings.backface_wireframe
+            and static.n_draw_groups > 1):
+        return False
+    if settings.xray_mode:
+        return settings.affine_textures
+    return static.transparent_last
+
+
 def check_slice(static: FlatSceneStatic, settings: RasterSettings):
     """Raise NotImplementedError for every configuration outside the
-    ported slice (opaque faces, z-buffer, affine UVs, no wireframes)."""
+    ported slice: ortho projection, wireframes, perspective-correct UVs,
+    and transparent faces outside the last draw group (the JAX package's
+    sequential renderer; of kernel_path_ok's conditions, the only one the
+    others leave open)."""
     if settings.ortho_projection is not None:
         raise NotImplementedError(f"ortho projection {_LATER}")
-    if settings.xray_mode:
-        raise NotImplementedError(f"x-ray mode {_LATER}")
-    if not settings.use_zbuffer:
-        raise NotImplementedError(f"painter's mode {_LATER}")
     if settings.wireframe_overlay or (settings.backface_cull
                                       and settings.backface_wireframe):
         raise NotImplementedError(f"wireframe passes {_LATER}")
     if not settings.affine_textures:
         raise NotImplementedError(f"perspective-correct UVs {_LATER}")
-    if static.transparent_idx:
+    if not settings.xray_mode and not static.transparent_last:
         raise NotImplementedError(
-            f"transparent faces (the kernel's phase 3) {_LATER}")
+            "the sequential renderer (transparent faces outside the last "
+            f"draw group) {_LATER}")
 
 
 def render_level_flat(scene: FlatScene, static: FlatSceneStatic,
@@ -317,11 +367,48 @@ def render_level_flat(scene: FlatScene, static: FlatSceneStatic,
                       height: int, width: int,
                       background: int = 0) -> FrameBuffers:
     """Batched level render of (I,) cameras into (I, H, W) framebuffers
-    cleared to `background` and inverse-z 0: surfaces, prep, then the
-    visibility and resolve kernels (their plain twins for CPU tensors)."""
-    check_slice(static, settings)
+    cleared to `background` and inverse-z 0, routed as the JAX kernel
+    path routes (scene_flat.render_level_flat):
+
+      * z-buffer or painter's mode: visibility (the painter's merge in
+        painter's mode), resolve, then the composite of the static
+        transparent-face list back to front, if the level has one;
+      * x-ray mode: the composite of every face in draw order onto the
+        background, with a cleared depth plane; neither visibility nor
+        resolve runs.
+
+    CUDA tensors run the kernels of csrc/raster.cu, CPU tensors their
+    plain twins."""
     surf = build_surfaces_flat(scene, cams, settings, width, height)
-    prep = rb.prep_instance(surf, scene.atlas, width, height)
+    return render_surfaces_flat(scene, static, surf, settings, height,
+                                width, background)
+
+
+def render_surfaces_flat(scene: FlatScene, static: FlatSceneStatic,
+                         surf: Surfaces, settings: RasterSettings,
+                         height: int, width: int,
+                         background: int = 0) -> FrameBuffers:
+    """render_level_flat from the surfaces on: prep, then the kernels as
+    routed there.  Takes surfaces built elsewhere (the tests feed the JAX
+    package's, to hold the raster phases to it apart from the surfaces'
+    float rounding)."""
+    check_slice(static, settings)
+    if settings.xray_mode:
+        shape = (surf.sx.shape[0], height, width)
+        dev = surf.sx.device
+        color = torch.full(shape, background, dtype=torch.int32, device=dev)
+        depth = torch.zeros(shape, dtype=torch.float32, device=dev)
+        tables = rb.face_tables(surf, scene.atlas, width, height)
+        tr = rb.prep_xray(surf, group_id=scene.f_group,
+                          use_zbuffer=settings.use_zbuffer)
+        color = rb.composite(color, depth, tr, tables, scene.atlas, settings)
+        return FrameBuffers(color=color, depth=depth)
+    prep = rb.prep_instance(surf, scene.atlas, width, height,
+                            painters=not settings.use_zbuffer,
+                            group_id=scene.f_group)
     color, depth = rb.rasterize_batch(prep, scene.atlas, settings,
                                       height, width, background)
+    if static.transparent_idx:
+        tr = rb.prep_transparent(surf, static.transparent_idx)
+        color = rb.composite(color, depth, tr, prep, scene.atlas, settings)
     return FrameBuffers(color=color, depth=depth)

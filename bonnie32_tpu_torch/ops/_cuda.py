@@ -1,4 +1,5 @@
-"""Build, load and launch the CUDA kernels of csrc/raster.cu.
+"""Build, load and launch the CUDA kernels of csrc/raster.cu
+(`raster_visibility`, `raster_resolve`, `raster_composite`).
 
 nvcc compiles the source into a shared library with a plain C interface
 (no PyTorch headers: seconds, not minutes), named by a hash of the source
@@ -74,10 +75,12 @@ def _load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.raster_visibility.argtypes = [ptr] * 12 + [i32] * 4 + [ptr]
+            lib.raster_visibility.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
             lib.raster_visibility.restype = i32
             lib.raster_resolve.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
             lib.raster_resolve.restype = i32
+            lib.raster_composite.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
+            lib.raster_composite.restype = i32
             _lib = lib
     return _lib
 
@@ -110,9 +113,12 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
-def raster_visibility(prep, atlas, height: int, width: int):
+def raster_visibility(prep, atlas, height: int, width: int,
+                      painters: bool = False):
     """Launch `raster_visibility` (phase 1): returns (depth f32, winner
-    i32, bcx f32, bcy f32), each (I, H, W) on the prep's device."""
+    i32, bcx f32, bcy f32), each (I, H, W) on the prep's device.
+    `painters`: the painter's merge (last covering face wins) and a
+    cleared depth plane."""
     lib = _load()
     dev = prep.attrs.device
     n, t = prep.order.shape
@@ -130,7 +136,7 @@ def raster_visibility(prep, atlas, height: int, width: int):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.raster_visibility(*args, depth.data_ptr(), winner.data_ptr(),
                                 bcx.data_ptr(), bcy.data_ptr(), n, t,
-                                height, width, stream)
+                                height, width, int(painters), stream)
     _raise_on(err, "raster_visibility")
     raster_visibility.launches += 1
     return depth, winner, bcx, bcy
@@ -162,3 +168,37 @@ def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int,
 
 
 raster_resolve.launches = 0
+
+
+def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int):
+    """Launch `raster_composite` (phase 3): composites the entries of the
+    TransPrep `tr` in order onto `color` (I, H, W) i32, IN PLACE, and
+    returns it; face rows come from `prep` (a BatchPrep or FaceTables).
+    `mode` is a raster_batch.COMPOSITE_* value: z-buffer mode z-tests
+    against `depth` (I, H, W) f32, which is never written; x-ray takes the
+    50% average in place of the blend modes."""
+    lib = _load()
+    dev = color.device
+    n, height, width = color.shape
+    t = prep.attrs.shape[1]
+    nt = tr.tctrl.shape[1]
+    if n > 65535:
+        raise ValueError(f"{n} instances exceed the grid's z limit 65535")
+    if mode not in (0, 1, 2):
+        raise ValueError(f"unknown composite mode {mode}")
+    args = [_check("tctrl", tr.tctrl, torch.int32, (n, nt, 8), dev),
+            _check("tfscal", tr.tfscal, torch.float32, (n, nt, 12), dev),
+            _check("ctrl", prep.ctrl, torch.int32, (n, t, 8), dev),
+            _check("attrs", prep.attrs, torch.float32, (n, t, 32), dev),
+            *_check_atlas(atlas, dev),
+            _check("depth", depth, torch.float32, (n, height, width), dev),
+            _check("color", color, torch.int32, (n, height, width), dev)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.raster_composite(*args, n, nt, t, height, width, int(shading),
+                               int(mode), stream)
+    _raise_on(err, "raster_composite")
+    raster_composite.launches += 1
+    return color
+
+
+raster_composite.launches = 0

@@ -1,5 +1,5 @@
 """Batched rasterizer of the flat datagen frame
-(bonnie32_tpu/ops/raster_batch.py, phases 1-2 of the Pallas kernel).
+(bonnie32_tpu/ops/raster_batch.py, phases 1-3 of the Pallas kernel).
 
 `prep_instance` culls, bounds and compacts every instance's faces;
 `rasterize_batch` then runs
@@ -8,27 +8,35 @@
     in compacted draw order, per pixel the edge functions, barycentrics,
     coverage `min(bc) >= -1e-4` inside the face's clipped bbox, the colour
     key test for keyable faces, and the strict `izi > depth` merge (first
-    drawn wins ties).  Output: depth, winner face id and the winner's
-    (bcx, bcy) per pixel;
+    drawn wins ties) — or, in painter's mode, the last covering face wins
+    (faces arrive sorted back to front per draw group) and the depth
+    plane comes back cleared.  Output: depth, winner face id and the
+    winner's (bcx, bcy) per pixel;
   * RESOLVE (phase 2): per pixel with a winner, the PS1 pixel pipeline —
     affine UV, wrap, texel fetch, black/transparent key fixups, 5->8
     expand, vertex-colour modulate, shade, Bayer dither, RGB555 quantize,
     RGBA8 pack; the background word where no face won.
 
-For CUDA tensors both phases are the hand-written kernels of
-csrc/raster.cu (ops/_cuda.py); for CPU tensors they are the plain torch
-twins below, `visibility_ref` and `resolve_ref`, which evaluate the same
-f32 expressions in the same order (no FMA contraction on either side), so
-the two agree bit for bit.  The TPU layout machinery (lane-group layout,
-SMEM segment plans, draw-ordered attr gathers) is not ported: planes are
-(I, H, W) throughout.
+`composite` is phase 3: the ordered composite of a face list
+(`prep_transparent`: the transparent faces back to front; `prep_xray`:
+every face, for x-ray mode) onto the colour plane, with the PS1 blend
+modes and the editor-alpha lerp, or x-ray's 50% blend.  It z-tests
+against the opaque depth in z-buffer mode and never writes depth.
+
+For CUDA tensors every phase is a hand-written kernel of csrc/raster.cu
+(ops/_cuda.py); for CPU tensors they are the plain torch twins below,
+`visibility_ref`, `resolve_ref` and `composite_ref`, which evaluate the
+same f32 expressions in the same order (no FMA contraction on either
+side), so the two agree bit for bit.  The TPU layout machinery
+(lane-group layout, SMEM segment plans, draw-ordered attr gathers) is not
+ported: planes are (I, H, W) throughout.
 """
 
 from typing import NamedTuple
 
 import torch
 
-from .._host.config import RasterSettings, ShadingMode
+from ..config import BlendMode, RasterSettings, ShadingMode
 from ..types import Surfaces, TextureAtlas
 from . import color as col
 from .fixed import f32_to_i32
@@ -46,8 +54,18 @@ N_COLS = 32
 K_XLO, K_XHI, K_YLO, K_YHI, K_TID, K_KEY = 0, 1, 2, 3, 4, 5
 N_CTRL = 8
 
+# tctrl (i32) and tfscal (f32) columns of the phase-3 tables
+T_FID, T_TID, T_BLEND, T_EA, T_FLAGS, T_VALID = 0, 1, 2, 3, 4, 5
+N_TCTRL = 8
+N_TFS = 12                     # packed vertex colours x3 + shade x9
+
+# composite modes: z-test against the opaque depth; no z-test (painter's);
+# x-ray's 50% average in place of the blend modes, no z-test
+COMPOSITE_ZBUFFER, COMPOSITE_PAINTERS, COMPOSITE_XRAY = 0, 1, 2
+
 FLAG_DITHER = 1
 FLAG_BT = 2
+STP_BIT = 0x8000
 
 COVER_EPS = -0.0001
 
@@ -61,12 +79,63 @@ class BatchPrep(NamedTuple):
     attrs: torch.Tensor  # (I, T, N_COLS) f32 edge/depth/UV/colour/shade
 
 
+class FaceTables(NamedTuple):
+    """A BatchPrep's per-face tables alone, in original face order: all
+    the composite reads."""
+
+    ctrl: torch.Tensor   # (I, T, N_CTRL) i32
+    attrs: torch.Tensor  # (I, T, N_COLS) f32
+
+
+def _lexsort(keys):
+    """Indices (I, T) that sort each row by keys[0], then keys[1], ...
+    (each (I, T)), ties kept in index order: successive stable sorts,
+    least significant key first."""
+    order = None
+    for key in reversed(keys):
+        k = key if order is None else key.gather(1, order)
+        idx = torch.sort(k, dim=1, stable=True).indices
+        order = idx if order is None else order.gather(1, idx)
+    return order
+
+
 def prep_instance(surfaces: Surfaces, atlas: TextureAtlas,
-                  width: int, height: int) -> BatchPrep:
+                  width: int, height: int, painters: bool = False,
+                  group_id=None) -> BatchPrep:
     """Cull + bbox + compact every instance's surfaces (the JAX
-    prep_instance, single-segment z-buffer case).  Kept faces are opaque,
-    valid, non-degenerate, with a finite non-empty clipped bbox; they
-    compact in original (= draw) order by a stable sort."""
+    prep_instance, single-segment case).  Kept faces are opaque, valid,
+    non-degenerate, with a finite non-empty clipped bbox.  In z-buffer
+    mode they compact in original (= draw) order; in painter's mode in the
+    reference's SORT order (render.rs:2525-2542): per draw group
+    (`group_id`, (T,) i32), back to front by centroid z, stable, unkept
+    faces keyed +inf."""
+    keep, ctrl, attrs = _cull_and_tables(surfaces, atlas, width, height)
+    n, t = keep.shape
+    unkept = (~keep).to(torch.int8)
+    if painters:
+        gid = (torch.zeros(t, dtype=torch.int32, device=keep.device)
+               if group_id is None else group_id.to(torch.int32))
+        cz = surfaces.centroid_z
+        zkey = torch.where(keep & ~torch.isnan(cz), -cz,
+                           torch.full_like(cz, float("inf")))
+        order = _lexsort([unkept, gid.expand(n, t), zkey])
+    else:
+        order = torch.sort(unkept, dim=1, stable=True).indices
+    count = keep.sum(dim=1, dtype=torch.int32)
+    return BatchPrep(count=count, order=order.to(torch.int32).contiguous(),
+                     ctrl=ctrl, attrs=attrs)
+
+
+def face_tables(surfaces: Surfaces, atlas: TextureAtlas,
+                width: int, height: int) -> FaceTables:
+    """prep_instance's ctrl/attrs tables without the cull's compaction
+    (x-ray mode composites every face and needs no draw order)."""
+    _, ctrl, attrs = _cull_and_tables(surfaces, atlas, width, height)
+    return FaceTables(ctrl=ctrl, attrs=attrs)
+
+
+def _cull_and_tables(surfaces, atlas, width, height):
+    """(keep (I, T) bool, ctrl, attrs) of prep_instance."""
     sx, sy = surfaces.sx, surfaces.sy
     v1x, v2x, v3x = sx[..., 0], sx[..., 1], sx[..., 2]
     v1y, v2y, v3y = sy[..., 0], sy[..., 1], sy[..., 2]
@@ -115,10 +184,7 @@ def prep_instance(surfaces: Surfaces, atlas: TextureAtlas,
                         keyable.to(torch.int32).expand(n, t),
                         torch.zeros_like(x_lo), torch.zeros_like(x_lo)],
                        dim=-1)
-    order = torch.sort((~keep).to(torch.int8), dim=1, stable=True).indices
-    count = keep.sum(dim=1, dtype=torch.int32)
-    return BatchPrep(count=count, order=order.to(torch.int32).contiguous(),
-                     ctrl=ctrl.contiguous(), attrs=attrs.contiguous())
+    return keep, ctrl.contiguous(), attrs.contiguous()
 
 
 def _interp3(bcx, bcy, bcz, a0, a1, a2):
@@ -150,10 +216,11 @@ def _texel_index(atlas, tid, u, v):
 
 
 def visibility_ref(prep: BatchPrep, atlas: TextureAtlas,
-                   height: int, width: int):
+                   height: int, width: int, painters: bool = False):
     """Plain torch twin of the `raster_visibility` kernel.  Returns
     (depth f32, winner i32 original face id or -1, bcx f32, bcy f32), each
-    (I, H, W)."""
+    (I, H, W).  `painters`: the last covering face wins and the depth
+    plane is returned cleared (painter's never writes depth)."""
     n = prep.count.shape[0]
     dev = prep.attrs.device
     yi = torch.arange(height, device=dev, dtype=torch.int32)[None, :, None]
@@ -191,12 +258,14 @@ def visibility_ref(prep: BatchPrep, atlas: TextureAtlas,
             texel = atlas.data[_texel_index(atlas, tid, u, v).long()]
             cov = cov & ~(keyed & ((texel & 0x7FFF) == 0))
         izi = (bcx * a[:, C_IZA] + bcy * a[:, C_IZB]) + bcz * a[:, C_IZC]
-        better = cov & (izi > depth)
+        better = cov if painters else cov & (izi > depth)
         depth = torch.where(better, izi, depth)
         winner = torch.where(better, fid.to(torch.int32)[:, None, None],
                              winner)
         bcx_p = torch.where(better, bcx, bcx_p)
         bcy_p = torch.where(better, bcy, bcy_p)
+    if painters:
+        depth = torch.zeros_like(depth)
     return depth, winner, bcx_p, bcy_p
 
 
@@ -264,15 +333,246 @@ def rasterize_batch(prep: BatchPrep, atlas: TextureAtlas,
     each (I, H, W).  CUDA tensors run the kernels of csrc/raster.cu; CPU
     tensors run the plain twins.  There is no other branch."""
     shading = int(settings.shading)
+    painters = not settings.use_zbuffer
     if prep.attrs.is_cuda:
         from . import _cuda
         depth, winner, bcx, bcy = _cuda.raster_visibility(
-            prep, atlas, height, width)
+            prep, atlas, height, width, painters=painters)
         color = _cuda.raster_resolve(prep, atlas, winner, bcx, bcy,
                                      shading, background)
         return color, depth
     if prep.attrs.device.type != "cpu":
         raise ValueError(f"unsupported device {prep.attrs.device}")
-    depth, winner, bcx, bcy = visibility_ref(prep, atlas, height, width)
+    depth, winner, bcx, bcy = visibility_ref(prep, atlas, height, width,
+                                             painters=painters)
     color = resolve_ref(prep, atlas, winner, bcx, bcy, shading, background)
     return color, depth
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: the ordered composite (transparent faces; every face in x-ray)
+# ---------------------------------------------------------------------------
+
+class TransPrep(NamedTuple):
+    """Per-instance tables of the composite, already in composite order,
+    so the kernel walks entries 0..NT-1.  Edge, bbox and UV scalars are
+    not duplicated: the composite reads them from the prep's ctrl/attrs
+    tables at row `fid` (original face order, every face addressable)."""
+
+    tctrl: torch.Tensor   # (I, NT, N_TCTRL) i32: fid, tid, blend, ea,
+    #                       flags, valid (T_* columns)
+    tfscal: torch.Tensor  # (I, NT, N_TFS) f32: packed vertex colours x3
+    #                       + corner-major shade x9
+
+
+def _face_subset(surfaces: Surfaces, idx) -> Surfaces:
+    """The faces `idx` of every instance.  Fields shared by the instances
+    are (T,); the others (I, T, ...)."""
+    return Surfaces(*(v[idx] if v.dim() == 1 else v[:, idx]
+                      for v in surfaces))
+
+
+def _composite_tables(sub: Surfaces, fids, order) -> TransPrep:
+    """Composite tables for a face subset: `fids` (NT,) are original face
+    ids (rows of the prep tables), `order` (I, NT) the composite
+    sequence.  Validity folds in what the sequential compositor checks
+    per pixel (valid, not degenerate) plus NaN-bbox protection."""
+    n, nt = sub.sx.shape[:2]
+    degenerate = sub.area.abs() < 0.00001
+    sx, sy = sub.sx, sub.sy
+    mins = torch.minimum(torch.minimum(sx[..., 0], sx[..., 1]), sx[..., 2])
+    maxs = torch.maximum(torch.maximum(sx[..., 0], sx[..., 1]), sx[..., 2])
+    miny = torch.minimum(torch.minimum(sy[..., 0], sy[..., 1]), sy[..., 2])
+    maxy = torch.maximum(torch.maximum(sy[..., 0], sy[..., 1]), sy[..., 2])
+    nan_box = (torch.isnan(mins) | torch.isnan(maxs) | torch.isnan(miny)
+               | torch.isnan(maxy))
+    valid = sub.valid & ~degenerate & ~nan_box
+    flags = (torch.where(sub.needs_dither, FLAG_DITHER, 0)
+             | torch.where(sub.black_transparent, FLAG_BT, 0))
+    zero = torch.zeros((n, nt), dtype=torch.int32, device=sx.device)
+    tctrl = torch.stack([
+        fids.to(torch.int32).expand(n, nt), sub.tex_id.expand(n, nt),
+        sub.blend_mode.expand(n, nt), sub.editor_alpha.expand(n, nt),
+        flags.to(torch.int32).expand(n, nt), valid.to(torch.int32),
+        zero, zero], dim=-1)
+    vc = sub.vc
+    vcp = (vc[..., 0] + (vc[..., 1] << 8) + (vc[..., 2] << 16)).to(
+        torch.float32)                                   # (I, NT, 3)
+    tfscal = torch.cat([vcp, sub.shade.reshape(n, nt, 9)], dim=-1)
+    o = order.long()[..., None]
+    return TransPrep(
+        tctrl=tctrl.gather(1, o.expand(-1, -1, N_TCTRL)).contiguous(),
+        tfscal=tfscal.gather(1, o.expand(-1, -1, N_TFS)).contiguous())
+
+
+def prep_transparent(surfaces: Surfaces, idx_tuple) -> TransPrep:
+    """Composite tables of the level's static transparent-face list
+    (FlatSceneStatic.transparent_idx), back to front by centroid z,
+    stable in list order (the sequential compositor's order,
+    render.rs:2525-2542)."""
+    idx = torch.tensor(idx_tuple, dtype=torch.long,
+                       device=surfaces.sx.device)
+    sub = _face_subset(surfaces, idx)
+    order = torch.sort(-sub.centroid_z, dim=1, stable=True).indices
+    return _composite_tables(sub, idx, order)
+
+
+def prep_xray(surfaces: Surfaces, group_id=None,
+              use_zbuffer: bool = True) -> TransPrep:
+    """All-face composite tables for x-ray mode (render.rs:507-526): per
+    draw group, the opaque faces in index order (back to front in
+    painter's mode), then the transparent faces back to front, then the
+    invalid ones (surface.draw_order / render.rs:2518-2545)."""
+    n, t = surfaces.sx.shape[:2]
+    dev = surfaces.sx.device
+    tr = surfaces.valid & surfaces.has_transparency
+    op = surfaces.valid & ~surfaces.has_transparency
+    rank = torch.where(op, 0, torch.where(tr, 1, 2)).to(torch.int32)
+    neg_z = -surfaces.centroid_z
+    within = (torch.where(tr, neg_z, torch.zeros_like(neg_z))
+              if use_zbuffer else neg_z)
+    gid = (torch.zeros(t, dtype=torch.int32, device=dev) if group_id is None
+           else group_id.to(torch.int32)).expand(n, t)
+    order = _lexsort([gid, rank, within])
+    return _composite_tables(surfaces, torch.arange(t, device=dev), order)
+
+
+def _blend5(blend, f8, b8):
+    """blend_rgb555 (render.rs:1093-1145) on 8-bit operands; the output is
+    the plain v5 << 3 expansion (render.rs:1143)."""
+    f5 = f8 >> 3
+    b5 = b8 >> 3
+    v5 = torch.where(
+        blend == int(BlendMode.AVERAGE), torch.clamp((b5 + f5) >> 1, max=31),
+        torch.where(
+            blend == int(BlendMode.ADD), torch.clamp(b5 + f5, max=31),
+            torch.where(
+                blend == int(BlendMode.SUBTRACT), torch.clamp(b5 - f5, min=0),
+                torch.where(
+                    blend == int(BlendMode.ADD_QUARTER),
+                    torch.clamp(b5 + (f5 >> 2), max=31),
+                    torch.where(blend == int(BlendMode.ERASE), b5, f5)))))
+    return v5 << 3
+
+
+def composite_mode(settings: RasterSettings) -> int:
+    """The COMPOSITE_* mode of `settings`."""
+    if settings.xray_mode:
+        return COMPOSITE_XRAY
+    return COMPOSITE_ZBUFFER if settings.use_zbuffer else COMPOSITE_PAINTERS
+
+
+def composite_ref(color, depth, tr: TransPrep, prep, atlas: TextureAtlas,
+                  shading: int, mode: int):
+    """Plain torch twin of the `raster_composite` kernel: the composite
+    entries of `tr` in order, each onto the colour plane (I, H, W) i32 of
+    the phase before, reading face rows from `prep` (a BatchPrep or
+    FaceTables).  COMPOSITE_ZBUFFER z-tests `izi > depth` against the
+    opaque depth (never written); COMPOSITE_XRAY takes the 50% average in
+    place of the blend modes and editor alpha.  Returns the new colour
+    plane."""
+    if mode not in (COMPOSITE_ZBUFFER, COMPOSITE_PAINTERS, COMPOSITE_XRAY):
+        raise ValueError(f"unknown composite mode {mode}")
+    zactive, xray = mode == COMPOSITE_ZBUFFER, mode == COMPOSITE_XRAY
+    n, height, width = color.shape
+    dev = color.device
+    yi = torch.arange(height, device=dev, dtype=torch.int32)[None, :, None]
+    xi = torch.arange(width, device=dev, dtype=torch.int32)[None, None, :]
+    px = xi.to(torch.float32)
+    py = yi.to(torch.float32)
+    offset = col.dither_offsets(xi, yi)
+    inst = torch.arange(n, device=dev)
+    # the editor-alpha // 255 is trunc(x * f32(1/255)), as in the kernels
+    inv255 = torch.tensor(1.0 / 255.0, dtype=torch.float32, device=dev)
+    for f in range(tr.tctrl.shape[1]):
+        tc = tr.tctrl[:, f][:, :, None, None]                # (I, 8, 1, 1)
+        live = (tc[:, T_VALID] != 0) & (tc[:, T_EA] != 0)
+        if not bool(live.any()):
+            continue
+        fid = tr.tctrl[:, f, T_FID].long()
+        a = prep.attrs[inst, fid][:, :, None, None]          # (I, 32, 1, 1)
+        k = prep.ctrl[inst, fid][:, :, None, None]           # (I, 8, 1, 1)
+        fs = tr.tfscal[:, f][:, :, None, None]               # (I, 12, 1, 1)
+        tid, blend, ea = tc[:, T_TID], tc[:, T_BLEND], tc[:, T_EA]
+        bt = (tc[:, T_FLAGS] & FLAG_BT) != 0
+        ndith = (tc[:, T_FLAGS] & FLAG_DITHER) != 0
+        dx = px - a[:, C_V3X]
+        dy = py - a[:, C_V3Y]
+        w0 = a[:, C_A0] * dx + a[:, C_B0] * dy
+        w1 = a[:, C_A1] * dx + a[:, C_B1] * dy
+        bcx = w0 * a[:, C_IA]
+        bcy = w1 * a[:, C_IA]
+        bcz = (1.0 - bcx) - bcy
+        vis = ((bcx >= COVER_EPS) & (bcy >= COVER_EPS) & (bcz >= COVER_EPS)
+               & (xi >= k[:, K_XLO]) & (xi < k[:, K_XHI])
+               & (yi >= k[:, K_YLO]) & (yi < k[:, K_YHI]) & live)
+        if zactive:
+            izi = (bcx * a[:, C_IZA] + bcy * a[:, C_IZB]) + bcz * a[:, C_IZC]
+            vis = vis & (izi > depth)
+        u = _interp3(bcx, bcy, bcz, a[:, C_U0], a[:, C_U1], a[:, C_U2])
+        v = _interp3(bcx, bcy, bcz, a[:, C_VV0], a[:, C_VV1], a[:, C_VV2])
+        textured = tid >= 0
+        texel = atlas.data[_texel_index(
+            atlas, torch.clamp(tid, min=0).expand(n, height, width),
+            u, v).long()]
+        c15 = torch.where(textured, texel, torch.full_like(texel, col.WHITE))
+        is_black = (col.r5(c15) == 0) & (col.g5(c15) == 0) & (col.b5(c15) == 0)
+        keyed_out = is_black & bt & textured
+        c15 = torch.where((c15 == 0) & ~bt,
+                          torch.full_like(c15, col.BLACK_DRAWABLE), c15)
+        tex8 = [col.expand_5_to_8(ch(c15)) for ch in (col.r5, col.g5, col.b5)]
+        vcs = [fs[:, j].to(torch.int32) for j in range(3)]
+        q5 = []
+        for c in range(3):
+            vcc = [((p >> (8 * c)) & 255).to(torch.float32) for p in vcs]
+            v8 = _u8_trunc_sat(_interp3(bcx, bcy, bcz, *vcc))
+            mod8 = torch.clamp((tex8[c] * v8) >> 7, max=255)
+            if shading == ShadingMode.NONE:
+                s = torch.ones_like(bcx)
+            elif shading == ShadingMode.FLAT:
+                s = fs[:, 3 + c]
+            else:
+                s = _interp3(bcx, bcy, bcz, fs[:, 3 + c], fs[:, 6 + c],
+                             fs[:, 9 + c])
+            shaded = _u8_trunc_sat(torch.clamp(
+                mod8.to(torch.float32) * torch.clamp(s, 0.0, 2.0),
+                max=255.0))
+            q5.append(torch.where(ndith,
+                                  col.dither_and_quantize8(shaded, offset),
+                                  shaded >> 3))
+        front = [col.expand_5_to_8(q) for q in q5]
+        all_black = (q5[0] == 0) & (q5[1] == 0) & (q5[2] == 0)
+        semi = ((c15 & STP_BIT) != 0) | all_black
+        back = [(color >> (8 * c)) & 255 for c in range(3)]
+        if xray:
+            out = [(fr + bk) >> 1 for fr, bk in zip(front, back)]
+        else:
+            do_blend = semi & (blend != int(BlendMode.OPAQUE))
+            ps1 = [torch.where(do_blend, _blend5(blend, fr, bk), fr)
+                   for fr, bk in zip(front, back)]
+            use_ea = ea < 255
+            out = [torch.where(
+                use_ea, torch.trunc((p * ea + bk * (255 - ea)).to(
+                    torch.float32) * inv255).to(torch.int32), p)
+                for p, bk in zip(ps1, back)]
+        word = col.pack_rgba8(out[0], out[1], out[2],
+                              torch.full_like(out[0], 255))
+        color = torch.where(vis & ~keyed_out, word, color)
+    return color
+
+
+def composite(color, depth, tr: TransPrep, prep, atlas: TextureAtlas,
+              settings: RasterSettings):
+    """Phase 3 for every instance: the entries of `tr` composited onto
+    `color` in order; z-tested against `depth` in z-buffer mode (never in
+    x-ray or painter's mode).  CUDA tensors run the `raster_composite`
+    kernel, which updates `color` in place; CPU tensors run the plain
+    twin.  Returns the colour plane."""
+    shading, mode = int(settings.shading), composite_mode(settings)
+    if color.is_cuda:
+        from . import _cuda
+        return _cuda.raster_composite(color, depth, tr, prep, atlas,
+                                      shading, mode)
+    if color.device.type != "cpu":
+        raise ValueError(f"unsupported device {color.device}")
+    return composite_ref(color, depth, tr, prep, atlas, shading, mode)

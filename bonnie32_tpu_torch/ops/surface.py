@@ -3,7 +3,7 @@ CULL/FOG phase (render.rs:2266-2293) that the flat surface build uses."""
 
 import torch
 
-from .._host.config import BlendMode
+from ..config import BlendMode
 from .fixed import f32_to_i32
 
 

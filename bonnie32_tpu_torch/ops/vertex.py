@@ -12,7 +12,7 @@ from typing import NamedTuple
 
 import torch
 
-from .._host.config import PROJ_DISTANCE, RasterSettings
+from ..config import PROJ_DISTANCE, RasterSettings
 from ..types import CameraArrays
 from . import fixed as fx
 

@@ -3,18 +3,21 @@
 
 `step_and_render` ticks every instance, updates its character camera and
 renders its view through models/scene_flat.render_level_flat — for CUDA
-tensors the visibility and resolve kernels of csrc/raster.cu.  The
-sequential per-instance renderer of the JAX package, skyboxes and every
-other non-slice configuration are not ported and raise.
+tensors the visibility, resolve and composite kernels of csrc/raster.cu,
+routed by the settings (z-buffer, painter's, x-ray) and the level's
+transparent faces.  The sequential per-instance renderer of the JAX
+package, skyboxes and every other non-slice configuration are not ported
+and raise.
 """
 
 from typing import NamedTuple
 
-from ._host.config import HEIGHT, WIDTH, RasterSettings
+from .config import HEIGHT, WIDTH, RasterSettings
 from .game import collision as col
 from .game import state as st
 from .game import step as stp
 from .models import scene_flat
+from .types import resolve_device
 
 
 class RolloutEnv(NamedTuple):
@@ -25,8 +28,10 @@ class RolloutEnv(NamedTuple):
 
 
 def build_env(level, textures, resolve, light_specs=None, flat: bool = True,
-              device="cpu") -> RolloutEnv:
-    """Compile `level` for the flat kernel path on `device`."""
+              device=None) -> RolloutEnv:
+    """Compile `level` for the flat kernel path on `device` (default: the
+    card; the tests pass device="cpu")."""
+    device = resolve_device(device)
     if not flat:
         raise NotImplementedError(
             "the sequential (non-flat) renderer is not ported; use flat=True")
@@ -42,10 +47,10 @@ def build_env(level, textures, resolve, light_specs=None, flat: bool = True,
 
 
 def initial_states(level, spawn_pos, n_instances: int, capacity: int = 4,
-                   device="cpu") -> st.GameState:
+                   device=None) -> st.GameState:
     """N identical instances with a spawned player; `capacity` entity
     slots each (the datagen default pads the one player 4x, as the JAX
-    package does)."""
+    package does).  `device` defaults to the card."""
     base = st.new_state(n_instances, capacity, device=device)
     base, _ = st.spawn_player(base, spawn_pos, level.player_settings)
     return base

@@ -99,6 +99,19 @@ class FrameBuffers(NamedTuple):
     depth: torch.Tensor  # (I, H, W) f32
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: the card unless the caller names
+    another (the tests pass device="cpu").  With no card and no explicit
+    device it raises; it never falls back to the CPU."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA card: the entry points run on the card by default; "
+            "pass device='cpu' to run the plain torch twins on the CPU")
+    return torch.device("cuda")
+
+
 def to_device(tree, device):
     """Move every tensor of a (nested) NamedTuple to `device`."""
     if isinstance(tree, torch.Tensor):

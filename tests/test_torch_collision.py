@@ -16,7 +16,7 @@ import torch
 import torch_scenes as ts
 from bonnie32_tpu.game import collision as jcol
 from bonnie32_tpu.models import level as JL
-from bonnie32_tpu_torch._host.models import level as TL
+from bonnie32_tpu_torch.models import level as TL
 from bonnie32_tpu_torch.game import collision as tcol
 from golden import collision_golden as gold
 
@@ -24,7 +24,7 @@ from golden import collision_golden as gold
 @pytest.fixture(scope="module")
 def level():
     lv = ts.cave_size_level(TL)
-    return lv, tcol.compile_collision(lv)
+    return lv, tcol.compile_collision(lv, device="cpu")
 
 
 def _points(lv, n, seed):
@@ -75,7 +75,7 @@ def test_floor_info_matches_jax(level):
 def test_room_lookup_across_two_rooms():
     """find_room_at with hints on a two-room level, against the host."""
     lv = ts.two_room_level(TL)
-    grid = tcol.compile_collision(lv)
+    grid = tcol.compile_collision(lv, device="cpu")
     pts = np.concatenate([_points(lv, 200, 2),
                           _points(lv, 200, 3) + np.float32([0, 0, 10240])])
     pts = pts.astype(np.float32)

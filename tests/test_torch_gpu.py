@@ -7,7 +7,8 @@ jax, hence --noconftest there:
 
 The kernels of csrc/raster.cu are held against their plain torch twins
 bit for bit (both sides are uncontracted IEEE f32 in the same order), and
-the main path is shown to launch them once per frame.
+the main paths (opaque, transparent, x-ray, painter's) are shown to
+launch them once per frame and to equal the CPU render.
 """
 
 import numpy as np
@@ -16,7 +17,7 @@ import torch
 
 import torch_scenes as ts
 from bonnie32_tpu_torch import rollout
-from bonnie32_tpu_torch._host.models import level as L
+from bonnie32_tpu_torch.models import level as L
 from bonnie32_tpu_torch.config import RasterSettings
 from bonnie32_tpu_torch.game import step as stp
 from bonnie32_tpu_torch.models import scene_flat
@@ -77,7 +78,8 @@ def test_main_path_launches_kernels_and_matches_cpu(env):
     assert _cuda.raster_resolve.launches - r0 == 2
     # the CPU path (plain twins) from the same cameras gives the same frame
     cams = stp.character_camera(states, e.params)
-    cpu_env = rollout.build_env(level, ts.textures(), ts.resolver)
+    cpu_env = rollout.build_env(level, ts.textures(), ts.resolver,
+                                device="cpu")
     out = scene_flat.render_level_flat(
         cpu_env.flat, cpu_env.flat_static,
         CameraArrays(*(x.cpu() for x in cams)), settings, H, W)
@@ -96,3 +98,94 @@ def test_wrappers_reject_bad_inputs(env):
                         attrs=torch.zeros((1, 4, 32), device=dev))
     with pytest.raises(ValueError):
         _cuda.raster_visibility(prep, e.flat.atlas, H, W)
+
+
+@pytest.fixture(scope="module")
+def tenv(env):
+    _, dev, _ = env
+    level = ts.transparent_cave_level(L)
+    return level, dev, rollout.build_env(level, ts.transparent_textures(),
+                                         ts.resolver, device=dev)
+
+
+def _transparent_inputs(tenv, settings):
+    level, dev, e = tenv
+    states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                    device=dev)
+    states = stp.tick(states, e.grid, e.params,
+                      _actions(np.random.default_rng(2), dev), 1.0 / 60.0)
+    cams = stp.character_camera(states, e.params)
+    surf = scene_flat.build_surfaces_flat(e.flat, cams, settings, W, H)
+    prep = rb.prep_instance(surf, e.flat.atlas, W, H,
+                            painters=not settings.use_zbuffer,
+                            group_id=e.flat.f_group)
+    return e, surf, prep
+
+
+@pytest.mark.parametrize("mode", ["zbuffer", "painters", "xray"])
+def test_composite_kernel_matches_twin_bit_for_bit(tenv, mode):
+    from bonnie32_tpu_torch.ops import _cuda
+    settings = RasterSettings.game(xray_mode=mode == "xray",
+                                   use_zbuffer=mode != "painters")
+    e, surf, prep = _transparent_inputs(tenv, settings)
+    atlas = e.flat.atlas
+    cmode = rb.composite_mode(settings)
+    if mode == "xray":
+        prep = rb.face_tables(surf, atlas, W, H)
+        tr = rb.prep_xray(surf, e.flat.f_group)
+        color = torch.full((N, H, W), 0x10203040, dtype=torch.int32,
+                           device=prep.attrs.device)
+        depth = torch.zeros(color.shape, device=color.device)
+    else:
+        tr = rb.prep_transparent(surf, e.flat_static.transparent_idx)
+        depth, winner, bcx, bcy = _cuda.raster_visibility(
+            prep, atlas, H, W, painters=mode == "painters")
+        color = _cuda.raster_resolve(prep, atlas, winner, bcx, bcy, 2, 0)
+    depth_before = depth.clone()
+    plain = rb.composite_ref(color, depth, tr, prep, atlas, 2, cmode)
+    kern = _cuda.raster_composite(color.clone(), depth, tr, prep, atlas, 2,
+                                  cmode)
+    torch.cuda.synchronize()
+    assert (kern != color).sum() > 0
+    assert torch.equal(kern, plain)
+    assert torch.equal(depth, depth_before)
+
+
+def test_painters_visibility_matches_twin_bit_for_bit(tenv):
+    from bonnie32_tpu_torch.ops import _cuda
+    settings = RasterSettings.game(use_zbuffer=False)
+    e, _, prep = _transparent_inputs(tenv, settings)
+    kern = _cuda.raster_visibility(prep, e.flat.atlas, H, W, painters=True)
+    plain = rb.visibility_ref(prep, e.flat.atlas, H, W, painters=True)
+    torch.cuda.synchronize()
+    for k, p in zip(kern, plain):
+        assert torch.equal(k, p)
+    assert not kern[0].any()
+
+
+@pytest.mark.parametrize("mode", ["zbuffer", "xray", "painters"])
+def test_transparent_main_path_matches_cpu(tenv, mode):
+    from bonnie32_tpu_torch.ops import _cuda
+    level, dev, e = tenv
+    settings = RasterSettings.game(xray_mode=mode == "xray",
+                                   use_zbuffer=mode != "painters")
+    states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                    device=dev)
+    counts = [k.launches for k in (_cuda.raster_visibility,
+                                   _cuda.raster_resolve,
+                                   _cuda.raster_composite)]
+    states, fbs = rollout.step_and_render(
+        states, e, _actions(np.random.default_rng(3), dev), settings,
+        height=H, width=W)
+    ran = [k.launches - c for k, c in zip(
+        (_cuda.raster_visibility, _cuda.raster_resolve,
+         _cuda.raster_composite), counts)]
+    assert ran == ([0, 0, 1] if mode == "xray" else [1, 1, 1])
+    cams = stp.character_camera(states, e.params)
+    cpu_env = rollout.build_env(level, ts.transparent_textures(),
+                                ts.resolver, device="cpu")
+    out = scene_flat.render_level_flat(
+        cpu_env.flat, cpu_env.flat_static,
+        CameraArrays(*(x.cpu() for x in cams)), settings, H, W)
+    assert torch.equal(out.color, fbs.color.cpu())
+    assert torch.equal(out.depth, fbs.depth.cpu())

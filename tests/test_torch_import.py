@@ -31,3 +31,38 @@ def test_no_source_imports_jax():
             stripped = line.strip()
             assert not (stripped.startswith("import jax")
                         or stripped.startswith("from jax")), f"{p}: {line}"
+
+
+JAX_PKG = REPO / "bonnie32_tpu"
+SOURCES = sorted([p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
+                 + [REPO / "chip_smoke.py"])
+
+
+def test_import_runs_no_file_of_the_jax_package():
+    """Every module of the port, the shared scenes and chip_smoke in one
+    fresh interpreter: no loaded module's file lies under bonnie32_tpu/."""
+    prefix = str(JAX_PKG) + "/"
+    code = (f"import sys; sys.path[:0] = [{str(REPO)!r}, "
+            f"{str(REPO / 'tests')!r}]\n"
+            f"for m in {['bonnie32_tpu_torch'] + MODULES!r}: __import__(m)\n"
+            "import torch_scenes, chip_smoke\n"
+            "files = [getattr(m, '__file__', None) or ''\n"
+            "         for m in list(sys.modules.values())]\n"
+            f"bad = [f for f in files if f.startswith({prefix!r})]\n"
+            "assert not bad, bad\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_source_names_no_jax_package_module(path):
+    """No source of the port, nor chip_smoke.py, names a module of the
+    JAX package, the old alias package, or a path built to its
+    directory."""
+    text = path.read_text()
+    assert "bonnie32_tpu." not in text
+    assert "_host" not in text
+    for quote in "'\"":
+        assert f"{quote}bonnie32_tpu{quote}" not in text

@@ -29,7 +29,8 @@ from bonnie32_tpu.game import step as jstep
 from bonnie32_tpu.models import level as JL
 from bonnie32_tpu_torch import interop
 from bonnie32_tpu_torch import rollout as trollout
-from bonnie32_tpu_torch._host.models import level as TL
+from bonnie32_tpu_torch.models import level as TL
+from bonnie32_tpu_torch.game import collision as tcol
 from bonnie32_tpu_torch.game import state as tstate
 from bonnie32_tpu_torch.game import step as tstep
 from bonnie32_tpu_torch.models import scene_flat as tsf
@@ -45,9 +46,11 @@ def runs():
     jlevel = ts.cave_size_level(JL)
     tlevel = ts.cave_size_level(TL)
     jenv = jrollout.build_env(jlevel, ts.textures(), ts.resolver, flat=True)
-    tenv = trollout.build_env(tlevel, ts.textures(), ts.resolver)
+    tenv = trollout.build_env(tlevel, ts.textures(), ts.resolver,
+                             device="cpu")
     jstates = jrollout.initial_states(jlevel, ts.spawn_point(jlevel), N)
-    tinit = trollout.initial_states(tlevel, ts.spawn_point(tlevel), N)
+    tinit = trollout.initial_states(tlevel, ts.spawn_point(tlevel), N,
+                                    device="cpu")
     tstates = interop.game_state(_np(jstates))
     rng = np.random.default_rng(7)
     out = dict(settings=settings, tenv=tenv, tinit=tinit,
@@ -103,6 +106,30 @@ def test_port_renders_jax_cameras_within_seam_budget(runs, frame):
     ddiff = int((~np.isclose(out.depth.numpy(), fr["jfb"].depth,
                              rtol=1e-6, atol=0)).sum())
     assert ddiff <= budget, f"{ddiff} depth diffs (budget {budget})"
+
+
+ENTRY_POINTS = {
+    "build_env": lambda lv: trollout.build_env(lv, ts.textures(),
+                                               ts.resolver),
+    "initial_states": lambda lv: trollout.initial_states(
+        lv, ts.spawn_point(lv), 2),
+    "compile_level_flat": lambda lv: tsf.compile_level_flat(
+        lv, ts.textures(), ts.resolver),
+    "compile_scene_flat": lambda lv: tsf.compile_scene_flat(
+        *ts.cube_scene(), [ts.checker_texture15()]),
+    "compile_collision": lambda lv: tcol.compile_collision(lv),
+    "player_params": lambda lv: tcol.player_params(lv),
+    "new_state": lambda lv: tstate.new_state(2, 4),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
+def test_entry_points_default_to_the_card(monkeypatch, name):
+    """Without a device argument an entry point runs on the card; with no
+    card it raises and never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        ENTRY_POINTS[name](ts.cave_size_level(TL))
 
 
 @pytest.mark.parametrize("frame", range(FRAMES))

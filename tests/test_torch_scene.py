@@ -24,7 +24,7 @@ from bonnie32_tpu.models import scene_flat as jsf
 from bonnie32_tpu.ops import raster_batch as jrb
 from bonnie32_tpu_torch import interop
 from bonnie32_tpu_torch import rollout as trollout
-from bonnie32_tpu_torch._host.models import level as TL
+from bonnie32_tpu_torch.models import level as TL
 from bonnie32_tpu_torch.game import collision as tcol
 from bonnie32_tpu_torch.models import scene_flat as tsf
 from bonnie32_tpu_torch.ops import raster_batch as trb
@@ -56,7 +56,7 @@ def scenes(request):
     jflat, jstatic = jsf.compile_level_flat(jlevel, ts.textures(),
                                             ts.resolver)
     tflat, tstatic = tsf.compile_level_flat(tlevel, ts.textures(),
-                                            ts.resolver)
+                                            ts.resolver, device="cpu")
     return (jlevel, tlevel, _np(jflat), jstatic, tflat, tstatic,
             request.param)
 
@@ -127,12 +127,12 @@ def test_flat_static_and_interop_roundtrip(scenes):
 def test_compile_collision_matches_jax(scenes, field):
     jlevel, tlevel = scenes[0], scenes[1]
     if field == "player_params":
-        ours = tcol.player_params(tlevel)
+        ours = tcol.player_params(tlevel, device="cpu")
         theirs = interop.player_params(_np(jcol.player_params(jlevel)))
         for f in ours._fields:
             assert float(getattr(ours, f)) == float(getattr(theirs, f)), f
         return
-    ours = tcol.compile_collision(tlevel)
+    ours = tcol.compile_collision(tlevel, device="cpu")
     theirs = interop.collision_grid(_np(jcol.compile_collision(jlevel)))
     a, b = getattr(ours, field), getattr(theirs, field)
     if isinstance(a, int):
@@ -247,24 +247,33 @@ def test_keyable_faces_are_kept(surfaces_and_prep, scenes):
 
 
 @pytest.mark.parametrize("variant", [
-    "ortho", "xray", "painters", "wire_overlay", "backface_wires",
-    "perspective_uv", "transparent_faces", "asset_library", "non_flat",
-    "skybox"])
+    "ortho", "transparent_not_last", "xray_perspective_uv", "wire_overlay",
+    "backface_wires", "perspective_uv", "transparent_perspective_uv",
+    "asset_library", "non_flat", "skybox"])
 def test_unported_configurations_raise(scenes, variant):
+    """What the JAX package hands to its sequential renderer, and what is
+    not ported yet, raises."""
     from bonnie32_tpu_torch.config import OrthoProjection
     tlevel, tflat, tstatic = scenes[1], scenes[4], scenes[5]
     game = RasterSettings.game()
+    perspective = dataclasses.replace(game, affine_textures=False)
     settings = {
         "ortho": dataclasses.replace(
             game, ortho_projection=OrthoProjection(1.0, 0.0, 0.0)),
-        "xray": dataclasses.replace(game, xray_mode=True),
-        "painters": dataclasses.replace(game, use_zbuffer=False),
+        "xray_perspective_uv": dataclasses.replace(perspective,
+                                                   xray_mode=True),
         "wire_overlay": dataclasses.replace(game, wireframe_overlay=True),
         "backface_wires": dataclasses.replace(game, backface_wireframe=True),
-        "perspective_uv": dataclasses.replace(game, affine_textures=False),
+        "perspective_uv": perspective,
+        "transparent_perspective_uv": perspective,
     }.get(variant, game)
     static = tstatic
-    if variant == "transparent_faces":
+    if variant == "transparent_not_last":
+        # a transparent face in a group before the last: the per-room
+        # interleave of the sequential renderer
+        static = dataclasses.replace(tstatic, transparent_idx=(3,),
+                                     transparent_last=False)
+    elif variant == "transparent_perspective_uv":
         static = dataclasses.replace(tstatic, transparent_idx=(3,))
     cams = interop.camera_arrays(_np(jbuild.make_camera(
         np.zeros(3, np.float32), jbuild.camera_basis(0.2, 0.3))))
@@ -272,13 +281,14 @@ def test_unported_configurations_raise(scenes, variant):
     with pytest.raises(NotImplementedError):
         if variant == "asset_library":
             tsf.compile_level_flat(tlevel, ts.textures(), ts.resolver,
-                                   asset_library=object())
+                                   asset_library=object(), device="cpu")
         elif variant == "non_flat":
             trollout.build_env(tlevel, ts.textures(), ts.resolver,
-                               flat=False)
+                               flat=False, device="cpu")
         elif variant == "skybox":
             sky_level = ts.cave_size_level(TL)
             sky_level.skybox = {"enabled": True}
-            trollout.build_env(sky_level, ts.textures(), ts.resolver)
+            trollout.build_env(sky_level, ts.textures(), ts.resolver,
+                               device="cpu")
         else:
             tsf.render_level_flat(tflat, static, cams, settings, H, W)

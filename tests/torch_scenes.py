@@ -1,15 +1,17 @@
-"""A Cave-size level built in code, shared by the port's tests and
-chip_smoke.py.  Imports no jax: every builder takes the level module as
-an argument, so the JAX tests build the identical Level from
-`bonnie32_tpu.models.level` and the port from
-`bonnie32_tpu_torch._host.models.level`.
+"""Scenes built in code, shared by the port's tests and chip_smoke.py.
+Imports no jax: every level builder takes the level module as an
+argument, so a JAX test builds the identical Level from the JAX package's
+`models/level.py` and the port from `bonnie32_tpu_torch/models/level.py`
+(its own copy of that module).
 
 The sample levels are not in the repository, so this stands in for Cave
 (290 faces, 64x64 textures): one 8x8-sector room over rolling terrain
-with a flat ceiling, perimeter walls and two interior wall pieces —
+with a flat ceiling, perimeter walls and four interior wall pieces —
 8*8*2 floor + 8*8*2 ceiling + 32*2 perimeter + 4*2 interior = 328 faces,
 all opaque; two of the four 64x64 checker textures carry black texels,
-so keyed faces occur.
+so keyed faces occur.  `transparent_cave_level` glazes 20 of those faces
+with the PS1 blend modes, `transparent_two_room_level` glazes 8 faces of
+the second room only, and `cube_scene` is tests/scenes.py's cube.
 """
 
 import math
@@ -19,19 +21,26 @@ import numpy as np
 ROOM = 8              # sectors per side
 CEILING = 4096.0
 TEX = 64
-TEXTURE_NAMES = ("FLOOR", "WALL", "CEIL", "PILLAR")
+TEXTURE_NAMES = ("FLOOR", "WALL", "CEIL", "PILLAR",
+                 "GLASS", "GLOW", "SMOKE", "TINT", "VEIL")
+# BlendMode codes (config.BlendMode)
+OPAQUE, AVERAGE, ADD, SUBTRACT, ADD_QUARTER, ERASE = range(6)
 
 
 def checker_texture15(w=32, h=32, c1=0x7FFF, c2=0x0C63, block=4,
-                      with_black=False):
-    """A Color15 checkerboard, optionally with drawable-black texels
-    (tests/scenes.py's, without its jax imports)."""
+                      with_black=False, with_transparent=False,
+                      blend_mode=OPAQUE):
+    """A Color15 checkerboard, optionally with drawable-black (0x8000) or
+    transparent (0x0000) texels (tests/scenes.py's, without its jax
+    imports).  Returns (pixels, blend_mode)."""
     ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
     pix = np.where(((xs // block) + (ys // block)) % 2 == 0, c1,
                    c2).astype(np.uint16)
     if with_black:
         pix[1::7, 1::5] = 0x8000
-    return pix, 0
+    if with_transparent:
+        pix[3::8, 2::6] = 0x0000
+    return pix, blend_mode
 
 
 def textures():
@@ -43,6 +52,25 @@ def textures():
             checker_texture15(TEX, TEX, c1=0x3DEF, c2=0x1CE7, block=4),
             checker_texture15(TEX, TEX, c1=0x7C1F, c2=0x03E0, block=8,
                               with_black=True)]
+
+
+def transparent_textures():
+    """textures() plus five 64x64 textures with their own blend mode, one
+    of each non-opaque mode; their first checker colour has the STP bit
+    (0x8000), so those texels blend and the others draw opaque.  GLASS
+    carries drawable-black texels and VEIL transparent ones: both key out
+    on black-transparent faces."""
+    return textures() + [
+        checker_texture15(TEX, TEX, c1=0xBDEF, c2=0x2D6B, block=8,
+                          with_black=True, blend_mode=AVERAGE),
+        checker_texture15(TEX, TEX, c1=0x83FF, c2=0x0210, block=4,
+                          blend_mode=ADD),
+        checker_texture15(TEX, TEX, c1=0xA529, c2=0x1084, block=16,
+                          blend_mode=SUBTRACT),
+        checker_texture15(TEX, TEX, c1=0xFC00, c2=0x4000, block=8,
+                          blend_mode=ADD_QUARTER),
+        checker_texture15(TEX, TEX, c1=0x801F, c2=0x0010, block=8,
+                          with_transparent=True, blend_mode=ERASE)]
 
 
 def resolver(ref):
@@ -82,6 +110,37 @@ def cave_size_level(L):
     return level
 
 
+def _glaze(L, face, name, blend):
+    """Give a level face a transparent texture and the face blend mode."""
+    face.texture = L.TextureRef("torch-scenes", name)
+    face.blend_mode = blend
+
+
+def transparent_cave_level(L):
+    """The Cave-size level with 20 transparent faces: the four interior
+    wall pieces (GLASS, GLOW, SMOKE, TINT) and a 3x2 pool of floor
+    sectors beside the spawn point, one per blend mode (VEIL, GLASS,
+    GLOW, SMOKE, TINT) plus the opaque FLOOR texture under an AVERAGE face
+    blend, transparent by the face flag alone.  Render with
+    transparent_textures()."""
+    level = cave_size_level(L)
+    room = level.rooms[0]
+    for (x, z, d), name in zip(((3, 3, L.NORTH), (3, 3, L.EAST),
+                                (5, 4, L.SOUTH), (2, 5, L.WEST)),
+                               ("GLASS", "GLOW", "SMOKE", "TINT")):
+        wall = room.get_sector(x, z).walls(d)[-1]
+        _glaze(L, wall, name, TEXTURE_BLENDS[name])
+    for (x, z), name in zip(((1, 1), (2, 1), (3, 1), (1, 2), (2, 2)),
+                            ("VEIL", "GLASS", "GLOW", "SMOKE", "TINT")):
+        _glaze(L, room.get_sector(x, z).floor, name, TEXTURE_BLENDS[name])
+    room.get_sector(3, 2).floor.blend_mode = AVERAGE
+    return level
+
+
+TEXTURE_BLENDS = {"GLASS": AVERAGE, "GLOW": ADD, "SMOKE": SUBTRACT,
+                  "TINT": ADD_QUARTER, "VEIL": ERASE}
+
+
 def two_room_level(L):
     """The Cave-size room plus a fogged 4x4 room beside it, with its own
     ambient: 328 + 96 faces in two draw groups, for the per-room fog,
@@ -107,6 +166,18 @@ def two_room_level(L):
     return level
 
 
+def transparent_two_room_level(L):
+    """The two-room level with 8 transparent faces, all in the second
+    room (the last draw group): a 2x2 patch of its floor.  Render with
+    transparent_textures()."""
+    level = two_room_level(L)
+    room = level.rooms[1]
+    for (x, z), name in zip(((1, 1), (2, 1), (1, 2), (2, 2)),
+                            ("GLASS", "GLOW", "VEIL", "SMOKE")):
+        _glaze(L, room.get_sector(x, z).floor, name, TEXTURE_BLENDS[name])
+    return level
+
+
 def spawn_point(level):
     """First floored sector's centre, 10 units above the floor (as
     rollout.demo_env)."""
@@ -127,3 +198,49 @@ def actions_np(rng, n):
                 cam_x=rng.uniform(-1, 1, n).astype(np.float32),
                 cam_y=np.zeros(n, np.float32),
                 sprint=rng.random(n) < 0.3, jump=rng.random(n) < 0.05)
+
+
+def cube_scene(tex_ids=(0, 0, 0, None, None, 0), size=1.0,
+               center=(0.0, 0.0, 0.0), vertex_colors=None, blend_modes=None,
+               black_transparent=True, editor_alpha=255):
+    """A 24-vertex, 12-triangle cube with per-face uv/normals, as vertex
+    and face dicts (tests/scenes.py's cube_scene, without jax)."""
+    s = size / 2.0
+    cx, cy, cz = center
+    # 6 faces: +x, -x, +y, -y, +z, -z; outward normals
+    quads = [
+        ([(+s, -s, -s), (+s, +s, -s), (+s, +s, +s), (+s, -s, +s)], (1, 0, 0)),
+        ([(-s, -s, +s), (-s, +s, +s), (-s, +s, -s), (-s, -s, -s)],
+         (-1, 0, 0)),
+        ([(-s, +s, -s), (-s, +s, +s), (+s, +s, +s), (+s, +s, -s)], (0, 1, 0)),
+        ([(-s, -s, +s), (-s, -s, -s), (+s, -s, -s), (+s, -s, +s)],
+         (0, -1, 0)),
+        ([(+s, -s, +s), (+s, +s, +s), (-s, +s, +s), (-s, -s, +s)], (0, 0, 1)),
+        ([(-s, -s, -s), (-s, +s, -s), (+s, +s, -s), (+s, -s, -s)],
+         (0, 0, -1)),
+    ]
+    uvs = [(0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0)]
+    vertices, faces = [], []
+    if vertex_colors is None:
+        vertex_colors = [(128, 128, 128)] * 6
+    if blend_modes is None:
+        blend_modes = [0] * 6
+    for qi, (corners, normal) in enumerate(quads):
+        base = len(vertices)
+        col = vertex_colors[qi % len(vertex_colors)]
+        for ci, c in enumerate(corners):
+            vertices.append(dict(
+                pos=(c[0] + cx, c[1] + cy, c[2] + cz),
+                uv=uvs[ci], normal=normal, color=col, color_blend=0))
+        tid = tex_ids[qi % len(tex_ids)]
+        for tri in ((0, 1, 2), (0, 2, 3)):
+            faces.append(dict(
+                v0=base + tri[0], v1=base + tri[1], v2=base + tri[2],
+                tex_id=tid, black_transparent=black_transparent,
+                blend_mode=blend_modes[qi % len(blend_modes)],
+                editor_alpha=editor_alpha))
+    return vertices, faces
+
+
+DEFAULT_LIGHT_SPECS = [dict(kind="directional", direction=(-1.0, -1.0, -1.0),
+                            intensity=0.7, color=(255, 255, 255))]
