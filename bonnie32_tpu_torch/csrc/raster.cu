@@ -15,7 +15,20 @@
 //   raster_resolve     phase 2 (_run_phase2): winner attributes, affine UV,
 //                      wrap, texel fetch, key fixups, 5->8 expand, vertex-
 //                      colour modulate, shade, Bayer dither, RGB555
-//                      quantize, RGBA8 pack; background where no face won.
+//                      quantize, RGBA8 pack; where no face drew, the
+//                      background: a constant word, a plane, or the sky.
+//   sky_pixel          the in-kernel sky (_sky_chunk_scr, :712-826, and
+//                      ops/skybox.py `_sample_sky`): the pixel's view ray
+//                      from the camera basis, its spherical angles, the
+//                      gradient / tint / haze / sun and moon / cloud
+//                      function, clip and truncate to 8 bits, then the
+//                      mountain triangles of the per-instance scalar
+//                      table, the last covering face winning (a pixel a
+//                      mountain covers never evaluates the sphere).  Fused
+//                      into raster_resolve (a pixel no face drew), and
+//                      alone as raster_sky, the full plane of the
+//                      sky-buffer route (ops/skybox.py
+//                      `render_skybox_layout`).
 //   raster_composite   phase 3 (_run_phase3, :1554-1784): the ordered
 //                      composite of a face list onto the colour plane —
 //                      z-test against the opaque depth (never written), the
@@ -47,13 +60,31 @@
 // z-buffer mode) and writes colour, 8-12 B a pixel, only in the tiles that
 // a live entry's bbox touches; its work is the full pixel pipeline for
 // every pixel of every live entry's bbox in the tile, ~120 integer and f32
-// operations each.  wgmma, TMA, warp-specialised
+// operations each.  The sky writes 4 B a pixel and is bound by its f32
+// operations: the ray (two divides, a square root), acos, atan2 where a
+// tint or a cloud needs the azimuth, a second acos and a pow per body
+// whose glow the ray is inside, six sines and a pow per cloud layer, and
+// ~25 operations per mountain face whose box holds the pixel.  The TPU
+// gates sun, moon and mountains per chunk of rows.  Here the bodies' gate
+// is per pixel (a body beyond four times its size adds exactly nothing,
+// so the gate changes no value), and the mountains are staged per block:
+// a block of 256 pixels lies in one instance and spans one or two rows,
+// its threads load the records of the faces whose box reaches those rows
+// into shared memory once, and each pixel then tests only those (a first
+// version read every face's box from global memory at every pixel and
+// spent three quarters of its time there).  The sky's configuration is a
+// kernel argument (SkyParams, by value): a feature that is off costs a
+// uniform branch, and a new level costs no recompilation.  wgmma, TMA, warp-specialised
 // pipelines and fusing the kernels are later work.
 //
 // Numerics: every float expression keeps the JAX operation order and the
 // build passes -fmad=false, because the TPU never contracts a*b+c into an
 // FMA.  Coverage is the three-compare chain (NaN fails it, as jnp.minimum's
 // NaN propagation does in the JAX kernel; fminf would drop the NaN).
+// The sky's mountains use only + - * / and equal the plain version bit
+// for bit; its acosf, atan2f, sinf and powf are CUDA's accurate ones (no
+// fast-math), whose last bits differ from torch's, so a sphere pixel may
+// sit one 8-bit step from the plain version's.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -193,6 +224,248 @@ __device__ __forceinline__ int blend5(int blend, int f8, int b8) {
   return v5 << 3;
 }
 
+}  // namespace
+
+// The sky's configuration, filled by ops/_cuda.py from
+// ops/skybox.py `sky_consts` (same field names) and passed by value.
+// Every field is 4 bytes wide.
+struct SkyBody {
+  int enabled;
+  float dx, dy, dz;          // unit direction of the body
+  float cos_gate;            // cos(min(4 size, pi)) - 1e-5
+  float size, glow_r, glow_span, glow_falloff;
+  float color[3], glow_color[3];
+};
+struct SkyCloud {
+  int enabled;
+  float vmin, vmax, scroll_speed;
+  float f1, p1, s1, f2, p2, s2, f3, p3, s3;
+  float threshold, span, height, half_thickness, opacity;
+  float color[3];
+};
+struct SkyParams {
+  float zenith[3], horizon_sky[3], horizon_ground[3], nadir[3];
+  float horizon, above_div, below_div;
+  int has_above, has_below;
+  int tint_enabled;
+  float tint_dir, tint_spread, tint_intensity, tint_color[3];
+  int haze_enabled;
+  float haze_extent, haze_intensity, haze_color[3];
+  SkyBody body[2];
+  SkyCloud cloud[2];
+  int need_theta;
+  float half_w, half_h, vs, usq;   // view-ray constants
+};
+
+namespace {
+
+// rows of the per-instance scalar table (ops/skybox.py, R_*)
+constexpr int R_MSX = 0, R_MSY = 1, R_INV = 2, R_BASIS = 3, R_YMIN = 4;
+constexpr int R_YMAX = 5, R_XMIN = 6, R_XMAX = 7, SKY_TIME = 9;
+constexpr int N_SKY_ROWS = 8, N_FACE_COLS = 12;
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float TWO_PI_F = 6.28318530717958647692f;
+
+__device__ __forceinline__ float clipf(float x, float lo, float hi) {
+  return nan_min(nan_max(x, lo), hi);
+}
+
+// av * (1 - t) + bv * t with the reference's clamp of t, per channel;
+// kept only where `sel` (the select after both sides of the JAX code)
+__device__ __forceinline__ void lerp3_where(bool sel, float c[3],
+                                            const float b[3], float t) {
+  t = clipf(t, 0.0f, 1.0f);
+  if (!sel) return;
+  for (int i = 0; i < 3; ++i) c[i] = c[i] * (1.0f - t) + b[i] * t;
+}
+
+// The sphere's word at pixel (xi, yi) of the instance whose scalar table
+// is `scal` (N_SKY_ROWS x vpad): the sky function at the pixel's view ray.
+__device__ int sky_sphere(const SkyParams& P, const float* __restrict__ scal,
+                          int vpad, int xi, int yi) {
+  const float* b = scal + R_BASIS * vpad;
+  const float ndc_x = (((float)xi + 0.5f) - P.half_w) / P.vs / P.usq;
+  const float ndc_y = (((float)yi + 0.5f) - P.half_h) / P.vs / P.usq;
+  const float norm = sqrtf((ndc_x * ndc_x + ndc_y * ndc_y) + 1.0f);
+  const float cx = ndc_x / norm, cy = ndc_y / norm, cz = 1.0f / norm;
+  const float wx = (cx * b[0] + cy * b[3]) + cz * b[6];
+  const float wy = (cx * b[1] + cy * b[4]) + cz * b[7];
+  const float wz = (cx * b[2] + cy * b[5]) + cz * b[8];
+  const float phi = acosf(clipf(wy, -1.0f, 1.0f));
+  float theta = 0.0f;
+  if (P.need_theta) {
+    // jnp.mod(atan2, 2 pi) for an angle in [-pi, pi]
+    const float a = atan2f(wz, wx);
+    theta = a < 0.0f ? a + TWO_PI_F : a;
+  }
+
+  const float v = phi / PI_F;
+  const float hz = P.horizon;
+  float c[3];
+  {
+    const bool is_above = v < hz;
+    const float t = is_above
+        ? (P.has_above ? v / P.above_div : 0.0f)
+        : (P.has_below ? (v - hz) / P.below_div : 1.0f);
+    const float tc = clipf(t, 0.0f, 1.0f);
+    const float* a0 = is_above ? P.zenith : P.horizon_ground;
+    const float* a1 = is_above ? P.horizon_sky : P.nadir;
+    for (int i = 0; i < 3; ++i) c[i] = a0[i] * (1.0f - tc) + a1[i] * tc;
+  }
+  if (P.tint_enabled) {
+    float diff = fabsf(theta - P.tint_dir);
+    if (diff > PI_F) diff = TWO_PI_F - diff;
+    const float dt = 1.0f - diff / P.tint_spread;
+    const float strength =
+        diff < P.tint_spread ? (dt * dt) * P.tint_intensity : 0.0f;
+    const float horizon_factor =
+        1.0f - nan_min(fabsf(v - hz) / 0.3f, 1.0f);
+    lerp3_where(strength > 0.0f, c, P.tint_color, strength * horizon_factor);
+  }
+  if (P.haze_enabled) {
+    const float dist = fabsf(v - hz);
+    const float de = 1.0f - dist / P.haze_extent;
+    const float s = dist < P.haze_extent ? (de * de) * P.haze_intensity
+                                         : 0.0f;
+    lerp3_where(s > 0.0f, c, P.haze_color, s);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const SkyBody& B = P.body[k];
+    if (!B.enabled) continue;
+    const float cosd = (wx * B.dx + wy * B.dy) + wz * B.dz;
+    if (!(cosd > B.cos_gate)) continue;   // beyond the glow: adds nothing
+    const float ang = acosf(clipf(cosd, -1.0f, 1.0f));
+    const float core = ang < B.size ? 1.0f - ang / B.size : 0.0f;
+    const float glow_t = clipf((ang - B.size) / B.glow_span, 0.0f, 1.0f);
+    const float glow = (ang >= B.size && ang < B.glow_r)
+        ? powf(1.0f - glow_t, B.glow_falloff) * 0.6f : 0.0f;
+    lerp3_where(core > 0.0f, c, B.color, core);
+    lerp3_where(glow > 0.0f, c, B.glow_color, glow);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const SkyCloud& L = P.cloud[k];
+    if (!L.enabled) continue;
+    const bool inside = v >= L.vmin && v <= L.vmax;
+    const float th_s = theta + b[SKY_TIME] * L.scroll_speed;
+    const float n1 = sinf(sinf(th_s * L.f1 + L.p1) * L.s1 + v * 50.0f);
+    const float n2 = sinf(sinf(th_s * L.f2 + L.p2) * L.s2 + v * 120.0f);
+    const float n3 = sinf(sinf(th_s * L.f3 + L.p3) * L.s3 + v * 200.0f);
+    const float raw =
+        clipf(((n1 * 0.5f + n2 * 0.3f) + n3 * 0.2f) + 0.5f, 0.0f, 1.0f);
+    const float frac = nan_max((raw - L.threshold) / L.span, 0.0f);
+    // the select form: powf's value is dropped where raw < threshold
+    const float p = powf(frac, 0.7f);
+    const float cval = raw < L.threshold ? 0.0f : p;
+    const float dist = fabsf(v - L.height) / L.half_thickness;
+    const float edge = clipf(1.0f - dist, 0.0f, 1.0f);
+    const float s = inside ? (cval * L.opacity) * edge : 0.0f;
+    lerp3_where(s > 0.0f, c, L.color, s);
+  }
+  // clip, then the saturating convert (NaN -> 0)
+  return (255 << 24) | u8_trunc_sat(c[0]) | (u8_trunc_sat(c[1]) << 8) |
+         (u8_trunc_sat(c[2]) << 16);
+}
+
+// Mountain faces staged per block: x0 y0 x1 y1 x2 y2, 1/dnm, the box
+// xmin xmax ymin ymax, then the nine corner colours.
+constexpr int SKY_BATCH = 64;
+constexpr int N_SKY_REC = 20;
+constexpr int SR_INV = 6, SR_XMIN = 7, SR_XMAX = 8, SR_YMIN = 9;
+constexpr int SR_YMAX = 10, SR_COL = 11;
+struct SkyFaces {
+  float rec[SKY_BATCH][N_SKY_REC];
+  int live[SKY_BATCH];
+};
+
+// The sky word of pixel (xi, yi) for every thread of a 1-D block whose
+// pixels lie in one instance (scalar table `scal`) on rows y_first to
+// y_last.  EVERY thread of the block calls this (it synchronizes);
+// threads with `need` unset get 0 back.  A face is drawn where its box
+// holds the pixel centre and the three barycentrics are >= 0; an invalid
+// or culled face has an empty box.  The last covering face wins, and
+// only a pixel none covers evaluates the sphere.
+__device__ int sky_pixel(SkyFaces& sh, const SkyParams& P,
+                         const float* __restrict__ scal, int vpad,
+                         const int* __restrict__ faces, int n_faces,
+                         int y_first, int y_last, bool need, int xi,
+                         int yi) {
+  const float px = (float)xi + 0.5f, py = (float)yi + 0.5f;
+  const float row_lo = (float)y_first + 0.5f;
+  const float row_hi = (float)y_last + 0.5f;
+  int word = 0;
+  bool hit = false;
+  for (int base = 0; base < n_faces; base += SKY_BATCH) {
+    const int nb = min(SKY_BATCH, n_faces - base);
+    __syncthreads();   // the previous batch is no longer read
+    for (int f = threadIdx.x; f < nb; f += blockDim.x) {
+      const int g = base + f;
+      const float ymin = scal[R_YMIN * vpad + g];
+      const float ymax = scal[R_YMAX * vpad + g];
+      // block-uniform per face: does its box reach this block's rows
+      const bool live = ymax >= row_lo && ymin <= row_hi;
+      sh.live[f] = live;
+      if (!live) continue;
+      const int* fc = faces + g * N_FACE_COLS;
+      float* r = sh.rec[f];
+      for (int k = 0; k < 3; ++k) {
+        r[2 * k] = scal[R_MSX * vpad + fc[k]];
+        r[2 * k + 1] = scal[R_MSY * vpad + fc[k]];
+      }
+      r[SR_INV] = scal[R_INV * vpad + g];
+      r[SR_XMIN] = scal[R_XMIN * vpad + g];
+      r[SR_XMAX] = scal[R_XMAX * vpad + g];
+      r[SR_YMIN] = ymin;
+      r[SR_YMAX] = ymax;
+      for (int k = 0; k < 9; ++k) r[SR_COL + k] = (float)fc[3 + k];
+    }
+    __syncthreads();
+    if (!need) continue;
+    for (int f = 0; f < nb; ++f) {
+      if (!sh.live[f]) continue;
+      const float* r = sh.rec[f];
+      if (!(px >= r[SR_XMIN] && px <= r[SR_XMAX] && py >= r[SR_YMIN] &&
+            py <= r[SR_YMAX]))
+        continue;
+      const float x0 = r[0], y0 = r[1], x1 = r[2], y1 = r[3];
+      const float x2 = r[4], y2 = r[5];
+      const float w0 =
+          ((y1 - y2) * (px - x2) + (x2 - x1) * (py - y2)) * r[SR_INV];
+      const float w1 =
+          ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) * r[SR_INV];
+      const float w2 = (1.0f - w0) - w1;
+      if (!(w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f)) continue;
+      hit = true;
+      word = 255 << 24;
+      for (int ch = 0; ch < 3; ++ch)
+        word |= u8_trunc_sat(truncf(
+                    (w0 * r[SR_COL + ch] + w1 * r[SR_COL + 3 + ch]) +
+                    w2 * r[SR_COL + 6 + ch]))
+                << (8 * ch);
+    }
+  }
+  if (need && !hit) word = sky_sphere(P, scal, vpad, xi, yi);
+  return word;
+}
+
+// What a pixel of resolve shows where no face drew: a plane (I, H, W) or,
+// without one, a constant word; or the sky.  The kernel is compiled once
+// for each, so that a level without a sky carries none of the sky's
+// shared memory or arguments.
+struct FlatBackground {
+  static constexpr bool IS_SKY = false;
+  int word;
+  const int* plane;
+};
+struct SkyBackground {
+  static constexpr bool IS_SKY = true;
+  const float* skyscal;      // (I, N_SKY_ROWS, vpad)
+  const int* sky_faces;      // (n_sky_faces, N_FACE_COLS)
+  int n_sky_faces, vpad;
+  SkyParams params;
+};
+
 template <bool PAINTERS>
 __global__ void __launch_bounds__(THREADS)
 visibility_kernel(const int* __restrict__ order,
@@ -289,34 +562,34 @@ visibility_kernel(const int* __restrict__ order,
   }
 }
 
+// The full sky plane.  Grid: (blocks of 256 pixels of one plane,
+// instances).
 __global__ void __launch_bounds__(256)
-resolve_kernel(const int* __restrict__ winner,
-               const float* __restrict__ bcx_in,
-               const float* __restrict__ bcy_in,
-               const float* __restrict__ attrs,
-               const int* __restrict__ tex_data,
-               const int* __restrict__ tex_off,
-               const int* __restrict__ tex_w,
-               const int* __restrict__ tex_h,
-               int* __restrict__ color_out,
-               long long n_pixels, int n_faces, int height, int width,
-               int shading, int background) {
-  const long long o = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (o >= n_pixels) return;
-  const int w = winner[o];
-  if (w < 0) {
-    color_out[o] = background;
-    return;
-  }
-  const long long plane = (long long)height * width;
-  const long long inst = o / plane;
-  const int pix = (int)(o % plane);
-  const int yi = pix / width;
-  const int xi = pix % width;
-  const float* a = attrs + ((size_t)inst * n_faces + w) * N_COLS;
+sky_kernel(const float* __restrict__ skyscal,
+           const int* __restrict__ sky_faces, int* __restrict__ color_out,
+           int n_sky_faces, int vpad, int height, int width,
+           const __grid_constant__ SkyParams sky) {
+  __shared__ SkyFaces sh;
+  const int plane = height * width;
+  const int inst = blockIdx.y;
+  const int first = blockIdx.x * blockDim.x;
+  const int pix = first + threadIdx.x;
+  const bool inside = pix < plane;
+  const int word = sky_pixel(
+      sh, sky, skyscal + (size_t)inst * N_SKY_ROWS * vpad, vpad, sky_faces,
+      n_sky_faces, first / width,
+      (min(first + (int)blockDim.x, plane) - 1) / width, inside,
+      pix % width, pix / width);
+  if (inside) color_out[(size_t)inst * plane + pix] = word;
+}
 
-  const float bcx = bcx_in[o];
-  const float bcy = bcy_in[o];
+// The colour word of the pixel whose winner is face row `a`; false where
+// its texel is keyed out and the background shows.
+__device__ __forceinline__ bool resolve_pixel(
+    const float* __restrict__ a, float bcx, float bcy,
+    const int* __restrict__ tex_data, const int* __restrict__ tex_off,
+    const int* __restrict__ tex_w, const int* __restrict__ tex_h,
+    int shading, int xi, int yi, int& word) {
   const float bcz = (1.0f - bcx) - bcy;
   const float u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
   const float v = interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2]);
@@ -332,18 +605,62 @@ resolve_kernel(const int* __restrict__ winner,
   int c15 = textured ? texel : 0x7FFF;
   const bool is_black = ((c15 >> 10) & 0x1F) == 0 &&
                         ((c15 >> 5) & 0x1F) == 0 && (c15 & 0x1F) == 0;
-  if (is_black && bt && textured) {   // colour key: background shows
-    color_out[o] = background;
-    return;
-  }
+  if (is_black && bt && textured) return false;   // colour key
   if (c15 == 0 && !bt) c15 = 0x8000;  // drawable black
   const int vcp[3] = {(int)a[C_VCP0], (int)a[C_VCP0 + 1],
                       (int)a[C_VCP0 + 2]};
   int q5[3];
   pixel_q5(c15, vcp, a + C_SH, shading, ndith, dither_offset(xi, yi), bcx,
            bcy, bcz, q5);
-  color_out[o] = (255 << 24) | expand_5_to_8(q5[0]) |
-                 (expand_5_to_8(q5[1]) << 8) | (expand_5_to_8(q5[2]) << 16);
+  word = (255 << 24) | expand_5_to_8(q5[0]) | (expand_5_to_8(q5[1]) << 8) |
+         (expand_5_to_8(q5[2]) << 16);
+  return true;
+}
+
+// Grid: (blocks of 256 pixels of one plane, instances).
+template <typename Bg>
+__global__ void __launch_bounds__(256)
+resolve_kernel(const int* __restrict__ winner,
+               const float* __restrict__ bcx_in,
+               const float* __restrict__ bcy_in,
+               const float* __restrict__ attrs,
+               const int* __restrict__ tex_data,
+               const int* __restrict__ tex_off,
+               const int* __restrict__ tex_w,
+               const int* __restrict__ tex_h,
+               int* __restrict__ color_out,
+               int n_faces, int height, int width,
+               int shading, const __grid_constant__ Bg bg) {
+  const int plane = height * width;
+  const int inst = blockIdx.y;
+  const int first = blockIdx.x * blockDim.x;
+  const int pix = first + threadIdx.x;
+  const bool inside = pix < plane;
+  const size_t o = (size_t)inst * plane + pix;
+  const int yi = pix / width;
+  const int xi = pix % width;
+
+  int word = 0;
+  bool drawn = false;
+  if (inside) {
+    const int w = winner[o];
+    if (w >= 0)
+      drawn = resolve_pixel(attrs + ((size_t)inst * n_faces + w) * N_COLS,
+                            bcx_in[o], bcy_in[o], tex_data, tex_off, tex_w,
+                            tex_h, shading, xi, yi, word);
+  }
+  const bool need = inside && !drawn;
+  if constexpr (Bg::IS_SKY) {   // every thread of the block takes part
+    __shared__ SkyFaces sh;
+    const int s = sky_pixel(
+        sh, bg.params, bg.skyscal + (size_t)inst * N_SKY_ROWS * bg.vpad,
+        bg.vpad, bg.sky_faces, bg.n_sky_faces, first / width,
+        (min(first + (int)blockDim.x, plane) - 1) / width, need, xi, yi);
+    if (need) word = s;
+  } else if (need) {
+    word = bg.plane != nullptr ? bg.plane[o] : bg.word;
+  }
+  if (inside) color_out[o] = word;
 }
 
 // Phase 3.  ZACTIVE: z-test against the opaque depth (z-buffer mode, not
@@ -524,17 +841,42 @@ int raster_visibility(const int* order, const int* count, const int* ctrl,
   return (int)cudaGetLastError();
 }
 
+// `bg_plane` (I, H, W) or, with `sky` set, `skyscal` + `sky_faces` replace
+// the constant `background` word where no face drew; at most one of the
+// two is given.
 int raster_resolve(const int* winner, const float* bcx, const float* bcy,
                    const float* attrs, const int* tex_data,
                    const int* tex_off, const int* tex_w, const int* tex_h,
-                   int* color, int n_inst, int n_faces, int height,
-                   int width, int shading, int background, void* stream) {
-  const long long n_pixels = (long long)n_inst * height * width;
+                   int* color, const int* bg_plane, const float* skyscal,
+                   const int* sky_faces, const SkyParams* sky, int n_inst,
+                   int n_faces, int height, int width, int shading,
+                   int background, int n_sky_faces, int vpad,
+                   void* stream) {
   const int threads = 256;
-  const unsigned blocks = (unsigned)((n_pixels + threads - 1) / threads);
-  resolve_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
-      n_pixels, n_faces, height, width, shading, background);
+  const dim3 grid((height * width + threads - 1) / threads, n_inst);
+  if (sky != nullptr && bg_plane != nullptr) return (int)cudaErrorInvalidValue;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (sky != nullptr) {
+    resolve_kernel<SkyBackground><<<grid, threads, 0, s>>>(
+        winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
+        n_faces, height, width, shading,
+        SkyBackground{skyscal, sky_faces, n_sky_faces, vpad, *sky});
+  } else {
+    resolve_kernel<FlatBackground><<<grid, threads, 0, s>>>(
+        winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
+        n_faces, height, width, shading,
+        FlatBackground{background, bg_plane});
+  }
+  return (int)cudaGetLastError();
+}
+
+int raster_sky(const float* skyscal, const int* sky_faces,
+               const SkyParams* sky, int* color, int n_inst, int n_sky_faces,
+               int vpad, int height, int width, void* stream) {
+  const int threads = 256;
+  const dim3 grid((height * width + threads - 1) / threads, n_inst);
+  sky_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      skyscal, sky_faces, color, n_sky_faces, vpad, height, width, *sky);
   return (int)cudaGetLastError();
 }
 

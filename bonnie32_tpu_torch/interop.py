@@ -13,6 +13,7 @@ from .game.collision import CollisionGrid, PlayerParams
 from .game.state import GameState
 from .models.scene_flat import FlatScene, FogFaces
 from .ops import raster_batch as rb
+from .ops import skybox as sky_ops
 from .types import (CameraArrays, FaceArrays, Lights, MeshArrays, Surfaces,
                     TextureAtlas)
 
@@ -99,3 +100,27 @@ def trans_prep(src, n_entries: int, device="cpu") -> rb.TransPrep:
     tfscal = np.asarray(src.tfscal)[:, :, :n_entries].transpose(0, 2, 1)
     return rb.TransPrep(tctrl=_t(tctrl.astype(np.int32), device),
                         tfscal=_t(tfscal.astype(np.float32), device))
+
+
+def sky_tables(src, skybox, device="cpu") -> sky_ops.SkyTables:
+    """The JAX SkyTables (array leaves as numpy; its static descriptor
+    `kstat` passes through tree_map untouched) plus the port's own host
+    `skybox` -> the port's SkyTables, so that both sides render from the
+    same directions, colours, faces and star phases.  The JAX package's
+    padded face list and vertex colours are folded into `face_table` (its
+    own static face descriptor); the mesh tables of the unported exact
+    path are not carried."""
+    ks = src.kstat
+    face_table = np.asarray(
+        [[f[0], f[1], f[2], *f[3], *f[4], *f[5]] for f in ks.faces],
+        np.int32).reshape(len(ks.faces), sky_ops.N_FACE_COLS)
+    return sky_ops.SkyTables(
+        skybox=skybox, time=float(ks.time), vpad=int(ks.vpad),
+        mtn_dirs=_t(src.mtn_dirs, device),
+        face_table=_t(face_table, device),
+        star_dirs=_t(src.star_dirs, device),
+        star_phase=_t(src.star_phase, device),
+        star_color=_t(src.star_color, device),
+        star_size=float(src.star_size),
+        star_twinkle=float(src.star_twinkle),
+        stars_enabled=bool(src.stars_enabled))

@@ -27,6 +27,7 @@ import torch
 from ..config import BlendMode, NEAR_PLANE, RasterSettings, \
     ShadingMode
 from ..ops import raster_batch as rb
+from ..ops import skybox as sky_ops
 from ..ops.lighting import normalize_rows, shade_points
 from ..ops.surface import _apply_fog_to_color, _fog_factor
 from ..ops.vertex import transform_vertices
@@ -364,11 +365,11 @@ def check_slice(static: FlatSceneStatic, settings: RasterSettings):
 
 def render_level_flat(scene: FlatScene, static: FlatSceneStatic,
                       cams: CameraArrays, settings: RasterSettings,
-                      height: int, width: int,
-                      background: int = 0) -> FrameBuffers:
+                      height: int, width: int, background: int = 0,
+                      sky=None, fb_color=None) -> FrameBuffers:
     """Batched level render of (I,) cameras into (I, H, W) framebuffers
-    cleared to `background` and inverse-z 0, routed as the JAX kernel
-    path routes (scene_flat.render_level_flat):
+    with inverse-z cleared to 0, routed as the JAX kernel path routes
+    (scene_flat.render_level_flat):
 
       * z-buffer or painter's mode: visibility (the painter's merge in
         painter's mode), resolve, then the composite of the static
@@ -377,26 +378,53 @@ def render_level_flat(scene: FlatScene, static: FlatSceneStatic,
         background, with a cleared depth plane; neither visibility nor
         resolve runs.
 
+    The background is one of: the word `background`; `fb_color`, an
+    (I, H, W) i32 plane (the sky-buffer route: ops.skybox.render_skybox);
+    or `sky`, an ops.skybox.SkyTables, the in-kernel sky: resolve
+    evaluates the sky at every pixel no face drew, then the star
+    sparkles land on the pixels whose depth is still 0.0.  `sky` needs
+    ops.skybox.sky_kernel_ok.
+
     CUDA tensors run the kernels of csrc/raster.cu, CPU tensors their
     plain twins."""
     surf = build_surfaces_flat(scene, cams, settings, width, height)
     return render_surfaces_flat(scene, static, surf, settings, height,
-                                width, background)
+                                width, background, sky=sky,
+                                fb_color=fb_color, cams=cams)
 
 
 def render_surfaces_flat(scene: FlatScene, static: FlatSceneStatic,
                          surf: Surfaces, settings: RasterSettings,
-                         height: int, width: int,
-                         background: int = 0) -> FrameBuffers:
+                         height: int, width: int, background: int = 0,
+                         sky=None, fb_color=None,
+                         cams=None) -> FrameBuffers:
     """render_level_flat from the surfaces on: prep, then the kernels as
     routed there.  Takes surfaces built elsewhere (the tests feed the JAX
     package's, to hold the raster phases to it apart from the surfaces'
-    float rounding)."""
+    float rounding); the in-kernel sky needs the cameras too."""
     check_slice(static, settings)
+    if sky is not None:
+        if fb_color is not None or background != 0:
+            raise ValueError("sky excludes fb_color and a background word")
+        if not sky_ops.sky_kernel_ok(sky, static, settings):
+            raise ValueError(
+                "in-kernel sky: take the sky-buffer route (fb_color) for "
+                "this settings/level combination (sky_kernel_ok)")
+        if cams is None:
+            raise ValueError("the in-kernel sky needs the cameras")
+        background = sky_ops.SkyBackground(
+            sky, sky_ops.prep_sky_scal(sky, cams, width, height))
+    elif fb_color is not None:
+        if background != 0:
+            raise ValueError("fb_color excludes a background word")
+        background = fb_color
     if settings.xray_mode:
         shape = (surf.sx.shape[0], height, width)
         dev = surf.sx.device
-        color = torch.full(shape, background, dtype=torch.int32, device=dev)
+        # the composite updates its colour plane in place on the card:
+        # start from a copy of the caller's plane
+        color = (fb_color.clone() if fb_color is not None else torch.full(
+            shape, background, dtype=torch.int32, device=dev))
         depth = torch.zeros(shape, dtype=torch.float32, device=dev)
         tables = rb.face_tables(surf, scene.atlas, width, height)
         tr = rb.prep_xray(surf, group_id=scene.f_group,
@@ -408,6 +436,11 @@ def render_surfaces_flat(scene: FlatScene, static: FlatSceneStatic,
                             group_id=scene.f_group)
     color, depth = rb.rasterize_batch(prep, scene.atlas, settings,
                                       height, width, background)
+    if sky is not None and sky.stars_enabled:
+        # sky_kernel_ok: no transparent face follows, so the stars cannot
+        # end up over one
+        color = sky_ops.scatter_stars(color, depth, sky, cams,
+                                      time=sky.time)
     if static.transparent_idx:
         tr = rb.prep_transparent(surf, static.transparent_idx)
         color = rb.composite(color, depth, tr, prep, scene.atlas, settings)

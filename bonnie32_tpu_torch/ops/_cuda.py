@@ -1,11 +1,14 @@
 """Build, load and launch the CUDA kernels of csrc/raster.cu
-(`raster_visibility`, `raster_resolve`, `raster_composite`).
+(`raster_visibility`, `raster_resolve`, `raster_composite`,
+`raster_sky`); csrc/gather.cu is built and loaded here too and launched
+by ops/gather.py.
 
-nvcc compiles the source into a shared library with a plain C interface
+nvcc compiles each source into a shared library with a plain C interface
 (no PyTorch headers: seconds, not minutes), named by a hash of the source
-and flags under `<repo>/build/torch_kernels/`, at first use.  ctypes loads
-it; each wrapper checks device, dtype, shape and contiguity, allocates
-its outputs with torch.empty, launches on the current stream, raises when
+and flags under `<repo>/build/torch_kernels/`, at first use; `build()`
+compiles all of them at once, one nvcc process each.  ctypes loads them;
+each wrapper checks device, dtype, shape and contiguity, allocates its
+outputs with torch.empty, launches on the current stream, raises when
 the C entry point returns a CUDA error, and counts its launches in the
 plain integer attribute `launches`.
 
@@ -23,13 +26,14 @@ from pathlib import Path
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "raster.cu"
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"raster": _CSRC / "raster.cu", "gather": _CSRC / "gather.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
-_lib = None
+_libs = {}
 
 
 def _nvcc() -> str:
@@ -42,47 +46,139 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    digest = hashlib.sha256(_SRC.read_bytes()
+def library_path(name: str = "raster") -> Path:
+    """Where the library for source `name`'s current text and the flags
+    lives."""
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"raster_{digest[:16]}.so"
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile csrc/raster.cu unless the hashed library already exists.
-    `verbose` adds -Xptxas -v and returns with its report printed."""
-    out = library_path()
-    if out.exists() and not verbose:
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", str(tmp), str(_SRC)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
+def build(names=None, verbose: bool = False) -> dict:
+    """Compile the sources `names` (default: all) whose hashed library
+    does not exist yet, all nvcc processes started together.  `verbose`
+    rebuilds with -Xptxas -v and prints its report.  Returns the library
+    paths by name."""
+    names = tuple(SOURCES) if names is None else tuple(names)
+    paths = {name: library_path(name) for name in names}
+    procs = {}
+    for name, out in paths.items():
+        if out.exists() and not verbose:
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", str(tmp), str(SOURCES[name])]
+        procs[name] = (tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    failed = []
+    for name, (tmp, proc) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {SOURCES[name].name} "
+                          f"({proc.returncode}):\n{log}")
+            continue
+        if verbose:
+            print(log)
+        os.replace(tmp, paths[name])
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
 
 
-def _load():
-    global _lib
+class _SkyBody(ctypes.Structure):
+    _fields_ = ([("enabled", ctypes.c_int)]
+                + [(n, ctypes.c_float) for n in (
+                    "dx", "dy", "dz", "cos_gate", "size", "glow_r",
+                    "glow_span", "glow_falloff")]
+                + [("color", ctypes.c_float * 3),
+                   ("glow_color", ctypes.c_float * 3)])
+
+
+class _SkyCloud(ctypes.Structure):
+    _fields_ = ([("enabled", ctypes.c_int)]
+                + [(n, ctypes.c_float) for n in (
+                    "vmin", "vmax", "scroll_speed", "f1", "p1", "s1", "f2",
+                    "p2", "s2", "f3", "p3", "s3", "threshold", "span",
+                    "height", "half_thickness", "opacity")]
+                + [("color", ctypes.c_float * 3)])
+
+
+class SkyParams(ctypes.Structure):
+    """csrc/raster.cu's SkyParams, field for field."""
+
+    _fields_ = ([(n, ctypes.c_float * 3) for n in (
+                    "zenith", "horizon_sky", "horizon_ground", "nadir")]
+                + [(n, ctypes.c_float) for n in (
+                    "horizon", "above_div", "below_div")]
+                + [(n, ctypes.c_int) for n in (
+                    "has_above", "has_below", "tint_enabled")]
+                + [(n, ctypes.c_float) for n in (
+                    "tint_dir", "tint_spread", "tint_intensity")]
+                + [("tint_color", ctypes.c_float * 3),
+                   ("haze_enabled", ctypes.c_int),
+                   ("haze_extent", ctypes.c_float),
+                   ("haze_intensity", ctypes.c_float),
+                   ("haze_color", ctypes.c_float * 3),
+                   ("body", _SkyBody * 2), ("cloud", _SkyCloud * 2),
+                   ("need_theta", ctypes.c_int)]
+                + [(n, ctypes.c_float) for n in (
+                    "half_w", "half_h", "vs", "usq")])
+
+
+def _fill(struct, values: dict):
+    """Copy `values` into the ctypes structure by field name; a key the
+    structure lacks is an error, fields the dict lacks stay 0."""
+    ctypes_of = dict(struct._fields_)
+    unknown = set(values) - set(ctypes_of)
+    if unknown:
+        raise KeyError(f"{type(struct).__name__} has no field "
+                       f"{sorted(unknown)}")
+    for name, v in values.items():
+        ctype = ctypes_of[name]
+        if isinstance(v, (list, tuple)):
+            item = ctype._type_
+            if issubclass(item, ctypes.Structure):
+                for slot, sub in zip(getattr(struct, name), v):
+                    _fill(slot, sub)
+            else:
+                setattr(struct, name, ctype(*v))
+        else:
+            setattr(struct, name, v)
+    return struct
+
+
+def sky_params(skybox, width: int, height: int) -> SkyParams:
+    """The kernels' sky configuration for `skybox` at this frame size,
+    from the same constants as the plain version (ops/skybox.py)."""
+    from . import skybox as sky_ops
+    return _fill(SkyParams(), {**sky_ops.sky_consts(skybox),
+                               **sky_ops.ray_consts(width, height)})
+
+
+def load(name: str = "raster"):
+    """The ctypes library of source `name`, built at first use."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build([name])[name]))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.raster_visibility.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
-            lib.raster_visibility.restype = i32
-            lib.raster_resolve.argtypes = [ptr] * 9 + [i32] * 6 + [ptr]
-            lib.raster_resolve.restype = i32
-            lib.raster_composite.argtypes = [ptr] * 10 + [i32] * 7 + [ptr]
-            lib.raster_composite.restype = i32
-            _lib = lib
-    return _lib
+            if name == "raster":
+                lib.raster_visibility.argtypes = ([ptr] * 12 + [i32] * 5
+                                                  + [ptr])
+                lib.raster_resolve.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
+                lib.raster_composite.argtypes = ([ptr] * 10 + [i32] * 7
+                                                 + [ptr])
+                lib.raster_sky.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+                for fn in (lib.raster_visibility, lib.raster_resolve,
+                           lib.raster_composite, lib.raster_sky):
+                    fn.restype = i32
+            else:
+                lib.select_gather.argtypes = [ptr] * 3 + [
+                    ctypes.c_longlong, i32, ptr]
+                lib.select_gather.restype = i32
+            _libs[name] = lib
+    return _libs[name]
 
 
 def _check(name, t, dtype, shape, device):
@@ -119,7 +215,7 @@ def raster_visibility(prep, atlas, height: int, width: int,
     i32, bcx f32, bcy f32), each (I, H, W) on the prep's device.
     `painters`: the painter's merge (last covering face wins) and a
     cleared depth plane."""
-    lib = _load()
+    lib = load()
     dev = prep.attrs.device
     n, t = prep.order.shape
     if n > 65535:
@@ -145,29 +241,76 @@ def raster_visibility(prep, atlas, height: int, width: int,
 raster_visibility.launches = 0
 
 
-def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int,
-                   background: int):
+def _sky_args(sky, scal, n, height, width, dev):
+    """Pointers and sizes of the sky's tables: (scal, faces, params by
+    reference, number of faces, vpad); `params` must outlive the call."""
+    nf = sky.face_table.shape[0]
+    params = sky_params(sky.skybox, width, height)
+    return ([_check("sky scal", scal, torch.float32, (n, 8, sky.vpad), dev),
+             _check("sky face_table", sky.face_table, torch.int32, (nf, 12),
+                    dev)], params, nf)
+
+
+def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int, background):
     """Launch `raster_resolve` (phase 2): the packed RGBA8 colour plane
-    (I, H, W) i32."""
-    lib = _load()
+    (I, H, W) i32.  `background` fills the pixels no face drew: an int
+    (one word), an (I, H, W) i32 plane, or an ops.skybox.SkyBackground
+    (the in-kernel sky)."""
+    lib = load()
     dev = prep.attrs.device
     n, height, width = winner.shape
     t = prep.attrs.shape[1]
+    if n > 65535:
+        raise ValueError(f"{n} instances exceed the grid's y limit 65535")
     args = [_check("winner", winner, torch.int32, (n, height, width), dev),
             _check("bcx", bcx, torch.float32, (n, height, width), dev),
             _check("bcy", bcy, torch.float32, (n, height, width), dev),
             _check("attrs", prep.attrs, torch.float32, (n, t, 32), dev),
             *_check_atlas(atlas, dev)]
     color = torch.empty((n, height, width), dtype=torch.int32, device=dev)
+    word, plane, sky_ptrs, params, nf, vpad = 0, None, [None, None], None, 0, 0
+    if isinstance(background, torch.Tensor):
+        plane = _check("background", background, torch.int32,
+                       (n, height, width), dev)
+    elif not isinstance(background, tuple):
+        word = int(background)
+    else:
+        sky, scal = background
+        sky_ptrs, params, nf = _sky_args(sky, scal, n, height, width, dev)
+        vpad = sky.vpad
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.raster_resolve(*args, color.data_ptr(), n, t, height, width,
-                             int(shading), int(background), stream)
+    err = lib.raster_resolve(
+        *args, color.data_ptr(), plane, *sky_ptrs,
+        ctypes.addressof(params) if params is not None else None,
+        n, t, height, width, int(shading), word, nf, vpad, stream)
     _raise_on(err, "raster_resolve")
     raster_resolve.launches += 1
     return color
 
 
 raster_resolve.launches = 0
+
+
+def raster_sky(sky, scal, height: int, width: int):
+    """Launch `raster_sky`: sphere + mountains of every instance of the
+    scalar table `scal` (I, 8, vpad) f32 (ops.skybox.prep_sky_scal), the
+    packed RGBA8 plane (I, H, W) i32."""
+    lib = load()
+    dev = scal.device
+    n = scal.shape[0]
+    if n > 65535:
+        raise ValueError(f"{n} instances exceed the grid's y limit 65535")
+    ptrs, params, nf = _sky_args(sky, scal, n, height, width, dev)
+    color = torch.empty((n, height, width), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.raster_sky(*ptrs, ctypes.addressof(params), color.data_ptr(),
+                         n, nf, sky.vpad, height, width, stream)
+    _raise_on(err, "raster_sky")
+    raster_sky.launches += 1
+    return color
+
+
+raster_sky.launches = 0
 
 
 def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int):
@@ -177,7 +320,7 @@ def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int):
     `mode` is a raster_batch.COMPOSITE_* value: z-buffer mode z-tests
     against `depth` (I, H, W) f32, which is never written; x-ray takes the
     50% average in place of the blend modes."""
-    lib = _load()
+    lib = load()
     dev = color.device
     n, height, width = color.shape
     t = prep.attrs.shape[1]

@@ -15,7 +15,9 @@
   * RESOLVE (phase 2): per pixel with a winner, the PS1 pixel pipeline —
     affine UV, wrap, texel fetch, black/transparent key fixups, 5->8
     expand, vertex-colour modulate, shade, Bayer dither, RGB555 quantize,
-    RGBA8 pack; the background word where no face won.
+    RGBA8 pack; where no face drew, the background: one word, a plane
+    (the sky-buffer route) or the sky itself, evaluated per pixel (the
+    TPU kernel's in-kernel sky, ops/skybox.py).
 
 `composite` is phase 3: the ordered composite of a face list
 (`prep_transparent`: the transparent faces back to front; `prep_xray`:
@@ -269,10 +271,28 @@ def visibility_ref(prep: BatchPrep, atlas: TextureAtlas,
     return depth, winner, bcx_p, bcy_p
 
 
+def background_ref(background, n: int, height: int, width: int, device):
+    """The background of `resolve_ref` as an (I, H, W) i32 plane (or a
+    tensor that broadcasts to it): `background` is one word, a plane, or
+    an ops.skybox.SkyBackground, whose sky the plain twin renders
+    whole."""
+    if isinstance(background, torch.Tensor):
+        if background.shape != (n, height, width):
+            raise ValueError(f"background plane {tuple(background.shape)}, "
+                             f"expected {(n, height, width)}")
+        return background
+    if isinstance(background, tuple):
+        from . import skybox as sky_ops
+        return sky_ops.sky_plane_ref(background.sky, background.scal,
+                                     height, width)
+    return torch.tensor(int(background), dtype=torch.int32, device=device)
+
+
 def resolve_ref(prep: BatchPrep, atlas: TextureAtlas, winner, bcx, bcy,
-                shading: int, background: int):
+                shading: int, background=0):
     """Plain torch twin of the `raster_resolve` kernel: the packed RGBA8
-    colour plane (I, H, W) for the winners of `visibility_ref`."""
+    colour plane (I, H, W) for the winners of `visibility_ref`, over
+    `background` (one word, a plane, or a SkyBackground)."""
     n, height, width = winner.shape
     dev = winner.device
     yi = torch.arange(height, device=dev, dtype=torch.int32)[None, :, None]
@@ -323,15 +343,18 @@ def resolve_ref(prep: BatchPrep, atlas: TextureAtlas, winner, bcx, bcy,
                           col.expand_5_to_8(out5[2]),
                           torch.full_like(out5[0], 255))
     drawn = has & ~keyed_out
-    return torch.where(drawn, word, torch.full_like(word, background))
+    return torch.where(drawn, word,
+                       background_ref(background, n, height, width, dev))
 
 
 def rasterize_batch(prep: BatchPrep, atlas: TextureAtlas,
                     settings: RasterSettings, height: int, width: int,
-                    background: int = 0):
+                    background=0):
     """Visibility then resolve for every instance: (color i32, depth f32),
-    each (I, H, W).  CUDA tensors run the kernels of csrc/raster.cu; CPU
-    tensors run the plain twins.  There is no other branch."""
+    each (I, H, W), over `background`: one word, an (I, H, W) i32 plane,
+    or an ops.skybox.SkyBackground (the in-kernel sky).  CUDA tensors run
+    the kernels of csrc/raster.cu; CPU tensors run the plain twins.
+    There is no other branch."""
     shading = int(settings.shading)
     painters = not settings.use_zbuffer
     if prep.attrs.is_cuda:

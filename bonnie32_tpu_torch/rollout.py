@@ -3,11 +3,12 @@
 
 `step_and_render` ticks every instance, updates its character camera and
 renders its view through models/scene_flat.render_level_flat — for CUDA
-tensors the visibility, resolve and composite kernels of csrc/raster.cu,
-routed by the settings (z-buffer, painter's, x-ray) and the level's
-transparent faces.  The sequential per-instance renderer of the JAX
-package, skyboxes and every other non-slice configuration are not ported
-and raise.
+tensors the visibility, resolve, composite and sky kernels of
+csrc/raster.cu, routed by the settings (z-buffer, painter's, x-ray), the
+level's transparent faces and its skybox (ops/skybox.py: the in-kernel
+sky where `sky_kernel_ok` allows it, else the sky-buffer route).  The
+sequential per-instance renderer of the JAX package and every other
+non-slice configuration are not ported and raise.
 """
 
 from typing import NamedTuple
@@ -17,6 +18,8 @@ from .game import collision as col
 from .game import state as st
 from .game import step as stp
 from .models import scene_flat
+from .models.skybox import Skybox
+from .ops import skybox as sky_ops
 from .types import resolve_device
 
 
@@ -25,6 +28,7 @@ class RolloutEnv(NamedTuple):
     params: col.PlayerParams
     flat: scene_flat.FlatScene
     flat_static: scene_flat.FlatSceneStatic
+    sky: object = None      # ops.skybox.SkyTables, or None (no skybox)
 
 
 def build_env(level, textures, resolve, light_specs=None, flat: bool = True,
@@ -35,15 +39,14 @@ def build_env(level, textures, resolve, light_specs=None, flat: bool = True,
     if not flat:
         raise NotImplementedError(
             "the sequential (non-flat) renderer is not ported; use flat=True")
-    if level.skybox:
-        raise NotImplementedError(
-            "skyboxes (the kernel's in-kernel sky) are not ported yet "
-            "(ROADMAP.md queue 1)")
+    sky_cfg = Skybox.from_ron(level.skybox) if level.skybox else None
+    sky = (sky_ops.build_sky_tables(sky_cfg, device=device) if sky_cfg
+           else None)
     fscene, fstatic = scene_flat.compile_level_flat(
         level, textures, resolve, light_specs=light_specs, device=device)
     return RolloutEnv(grid=col.compile_collision(level, device=device),
                       params=col.player_params(level, device=device),
-                      flat=fscene, flat_static=fstatic)
+                      flat=fscene, flat_static=fstatic, sky=sky)
 
 
 def initial_states(level, spawn_pos, n_instances: int, capacity: int = 4,
@@ -60,8 +63,10 @@ def step_and_render(states: st.GameState, env: RolloutEnv,
                     actions: stp.Actions, settings: RasterSettings,
                     height: int = HEIGHT, width: int = WIDTH,
                     dt: float = 1.0 / 60.0):
-    """One batched frame: tick, character camera, flat render with a
-    constant background 0.  Returns (new_states, FrameBuffers (I, H, W))."""
+    """One batched frame: tick, character camera, flat render over the
+    level's sky (routed as the JAX package routes it) or, without one, a
+    constant background 0.  Returns (new_states, FrameBuffers
+    (I, H, W))."""
     if not isinstance(env, RolloutEnv):
         raise NotImplementedError("only the flat kernel env is ported")
     if height % 8:
@@ -70,8 +75,24 @@ def step_and_render(states: st.GameState, env: RolloutEnv,
             "package")
     states = stp.tick(states, env.grid, env.params, actions, dt)
     cams = stp.character_camera(states, env.params)
-    fbs = scene_flat.render_level_flat(env.flat, env.flat_static, cams,
-                                       settings, height=height, width=width,
-                                       background=0)
-    return states, fbs
+    return states, render_cameras(env, cams, settings, height, width)
 
+
+def render_cameras(env: RolloutEnv, cams, settings: RasterSettings,
+                   height: int = HEIGHT, width: int = WIDTH):
+    """The frames of `cams` ((I,) CameraArrays) in the env's level, over
+    its sky if it has one: the render half of `step_and_render`."""
+    kw = {}
+    if env.sky is not None:
+        if sky_ops.sky_kernel_ok(env.sky, env.flat_static, settings):
+            # the resolve kernel draws the sky behind the faces; stars
+            # land afterwards on the pixels still at depth 0
+            kw["sky"] = env.sky
+        else:
+            # sky-buffer route: the whole sky plane and its stars first,
+            # then the rasterizer over it
+            kw["fb_color"] = sky_ops.render_skybox(env.sky, cams, height,
+                                                   width).color
+    return scene_flat.render_level_flat(env.flat, env.flat_static, cams,
+                                        settings, height=height, width=width,
+                                        **kw)

@@ -7,30 +7,50 @@ Needs one CUDA card, nvcc and this checkout; imports nothing of jax or of
 the JAX package.  In order:
 
   1. prints the card's name and power limit (nvidia-smi) and builds the
-     CUDA kernels of bonnie32_tpu_torch/csrc/raster.cu from source into
-     build/torch_kernels/ (nvcc, sm_90a), printing ptxas' register report;
-  2. builds the Cave-size level of tests/torch_scenes.py in code, and its
-     transparent variant (20 faces glazed with every PS1 blend mode);
+     CUDA kernels of bonnie32_tpu_torch/csrc/raster.cu and gather.cu from
+     source into build/torch_kernels/ (one nvcc each, started together,
+     sm_90a), printing ptxas' register report;
+  2. builds the Cave-size level of tests/torch_scenes.py in code, its
+     transparent variant (20 faces glazed with every PS1 blend mode), and
+     the open-air level and its transparent variant under the night sky
+     and the two-range sunset sky;
   3. kernel vs plain: N=8 instances at 320x240 after one tick — on the
      opaque level the visibility + resolve kernels, on the transparent
      level the composite kernel in z-buffer and x-ray mode and the
      painter's visibility, each against its plain torch twin on the same
      inputs: 0 differing pixels in colour, depth, winner and barycentric
-     planes; keyed faces present; every non-opaque blend mode draws;
+     planes; keyed faces present; every non-opaque blend mode draws.
+     The sky (TPU kernel K5), for the night and the sunset sky:
+     `raster_sky` and `raster_resolve` with the sky behind the faces
+     against `sky_plane_ref` / `resolve_ref` in three pixel classes —
+     pixels a face drew and pixels a mountain covers exact, the other sky
+     pixels within one 8-bit step, their share printed (acos, atan2, sin
+     and pow differ by ulps between nvcc's and torch's libraries); sky,
+     mountain and star pixels must all occur.  The gather (K7):
+     `select_gather` on a 32,768-entry table and N_MAIN x 240 x 320
+     indices, some out of range on both sides, i32 and f32, 0 differing
+     elements against its twin;
   4. main paths: rollout.step_and_render at N=1024, 320x240, with
      numpy-seeded actions — the opaque level (WARMUP + FRAMES frames),
      the transparent level (the same), then x-ray and painter's mode on
-     the transparent level (1 + MODE_FRAMES frames each); the launch
-     counters reset just before each counted run and read just after.
-     Checks one launch per frame of each kernel the path routes through
-     (x-ray: the composite only), finite states, >= 25% coverage in every
-     instance's last frame, distinct instances, and that the last frame
-     of 8 instances equals the plain render;
+     the transparent level (1 + MODE_FRAMES frames each); then the sky:
+     the open-air level under the night sky (in-kernel route: one
+     visibility and one sky-fused resolve a frame, no `raster_sky`), its
+     transparent variant (sky-buffer route: `raster_sky`, visibility,
+     resolve over the plane, composite), and x-ray and painter's over the
+     sunset sky.  The launch counters are reset just before each counted
+     run and read just after.  Checks one launch per frame of each kernel
+     the path routes through and none of the others, finite states,
+     >= 25% coverage in every instance's last frame, distinct instances,
+     and that the last frame of 8 instances equals the plain render (over
+     a sky: in the pixel classes above, with one RGB555 step allowed
+     where a blended face lies over a sky pixel that is one step off);
   5. times (CUDA events) the frames, the stages of the opaque and the
      transparent frame on a replay of the same frames, and each kernel
      beside its plain twin at the main path's shapes, with the bound
      (the least time the card could take: bytes over 3.35 TB/s or f32
-     operations over 67 TFLOP/s, whichever is larger).
+     operations over 67 TFLOP/s, whichever is larger); `select_gather`
+     also beside `torch.take`, the one PyTorch call that computes it.
 
 The last two lines of standard output are one JSON object with the
 kernels' measurements, then {"ok": true, "device": {...}}.  Any failed
@@ -46,7 +66,7 @@ import time
 N_MAIN = 1024
 N_CHECK = 8
 HEIGHT, WIDTH = 240, 320
-FRAMES = 8
+FRAMES = 6
 WARMUP = 2             # untimed main-path frames before the counted run
 MODE_FRAMES = 3        # counted x-ray and painter's frames
 SEED = 0
@@ -64,9 +84,29 @@ F32_OPS_S = 67e12
 # this run's data needs (keyed UVs and overdraw not counted).
 OPS_COVER = 20
 OPS_PIPELINE = 80
+# The sky, per pixel it shows on: the view ray (four divides by
+# constants, a square root, three divides, nine multiply-adds); each
+# acos, atan2 or sine counted as 20 operations and each pow as 40; the
+# gradient's divide, clamp and three-channel lerp; tint, haze and each
+# cloud layer where the sky has them; each enabled body's dot product and
+# gate on every pixel (the pixels inside a glow are not counted: the
+# bound stays below what the data needs); a mountain face's barycentrics,
+# compares and colour at each pixel of its clipped bbox.
+OPS_TRANSCENDENTAL = 20
+OPS_POW = 40
+OPS_SKY_RAY = 32
+OPS_SKY_GRADIENT = 18
+OPS_SKY_TINT = 28
+OPS_SKY_HAZE = 22
+OPS_SKY_BODY_GATE = 6
+OPS_SKY_CLOUD = 6 * OPS_TRANSCENDENTAL + OPS_POW + 40
+OPS_SKY_FACE = 25
+GATHER_TABLE = 32768   # "<= 32k entries", the JAX module's own size
 
 SRC = "bonnie32_tpu_torch/csrc/raster.cu"
+GATHER_SRC = "bonnie32_tpu_torch/csrc/gather.cu"
 JAX_RB = "bonnie32_tpu/ops/raster_batch.py"
+JAX_GATHER = "bonnie32_tpu/ops/gather_pallas.py"
 BLEND_NAMES = ("OPAQUE", "AVERAGE", "ADD", "SUBTRACT", "ADD_QUARTER",
                "ERASE")
 
@@ -99,8 +139,11 @@ def run(dev):
     from bonnie32_tpu_torch.game import step as stp
     from bonnie32_tpu_torch.models import level as L
     from bonnie32_tpu_torch.models import scene_flat
+    from bonnie32_tpu_torch.models import skybox as S
     from bonnie32_tpu_torch.ops import _cuda
+    from bonnie32_tpu_torch.ops import gather as tg
     from bonnie32_tpu_torch.ops import raster_batch as rb
+    from bonnie32_tpu_torch.ops import skybox as sky_ops
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -108,6 +151,11 @@ def run(dev):
         check=True).stdout.strip().splitlines()[0]
     card = f"[{smi}]"
     print(f"card: {smi}")
+    t_start = time.perf_counter()
+
+    def phase_done(name):
+        print(f"[{time.perf_counter() - t_start:7.1f} s] {name} done",
+              flush=True)
 
     t0 = time.perf_counter()
     _cuda.build(verbose=True)
@@ -127,8 +175,24 @@ def run(dev):
           f"{env.flat_static.n_textures} textures; transparent variant: "
           f"{len(tenv.flat_static.transparent_idx)} transparent faces, "
           f"{tenv.flat_static.n_textures} textures")
+    # the sky levels: night (in-kernel route; with transparent faces the
+    # sky-buffer route) and the two-range sunset (x-ray, painter's)
+    sky_envs = {}
+    for sky_name in ("night", "sunset"):
+        lv = ts.open_air_level(L, S, sky_name)
+        tlv = ts.transparent_open_air_level(L, S, sky_name)
+        sky_envs[sky_name] = (
+            lv, rollout.build_env(lv, ts.textures(), ts.resolver,
+                                  device=dev),
+            tlv, rollout.build_env(tlv, ts.transparent_textures(),
+                                   ts.resolver, device=dev))
+    slevel, senv, stlevel, stenv = sky_envs["night"]
+    print(f"open-air level: {senv.flat_static.n_faces} faces; night sky: "
+          f"{senv.sky.face_table.shape[0]} mountain faces, "
+          f"{senv.sky.star_dirs.shape[0]} stars; sunset sky: "
+          f"{sky_envs['sunset'][1].sky.face_table.shape[0]} mountain faces")
     kernels = (_cuda.raster_visibility, _cuda.raster_resolve,
-               _cuda.raster_composite)
+               _cuda.raster_composite, _cuda.raster_sky, tg.select_gather)
 
     def reset_counts():
         for k in kernels:
@@ -151,30 +215,108 @@ def run(dev):
                                 painters=not settings.use_zbuffer,
                                 group_id=e.flat.f_group)
 
+    def drawn_mask(color_like, depth, t, p, atlas, mode):
+        """Pixels the composite of `t` draws: composited onto a plane of
+        alpha 0 (whether a pixel draws does not depend on what lies under
+        it), every drawn word has alpha 255."""
+        c = rb.composite_ref(torch.zeros_like(color_like), depth, t, p,
+                             atlas, shading, mode)
+        return ((c >> 24) & 255) == 255
+
     def plain_render(e, states, settings):
-        """The frame of `states` through the plain twins only."""
+        """The frame of `states` through the plain twins only, routed as
+        rollout.render_cameras routes.  Returns (colour, classes): over a
+        sky, `classes` holds the masks `face` (an opaque face drew),
+        `mtn` (a mountain covers), `blended` (the composite drew) and the
+        number of star pixels; without a sky it is None."""
         surf = surf_for(e, states, settings)
         atlas = e.flat.atlas
         n = states.pos.shape[0]
-        shading = int(settings.shading)
         mode = rb.composite_mode(settings)
+        sky = e.sky
+        plane = stars = mtn = None
+        if sky is not None:
+            cams = stp.character_camera(states, e.params)
+            scal = sky_ops.prep_sky_scal(sky, cams, WIDTH, HEIGHT)
+            plane = sky_ops.sky_plane_ref(sky, scal, HEIGHT, WIDTH)
+            mtn = sky_ops.mountain_mask(sky, scal, HEIGHT, WIDTH)
+            in_kernel = sky_ops.sky_kernel_ok(sky, e.flat_static, settings)
+            if sky.stars_enabled and not in_kernel:
+                bare = plane
+                plane = sky_ops.scatter_stars(plane, None, sky, cams,
+                                              time=sky.time)
+                stars = int((plane != bare).sum())
         if settings.xray_mode:
-            color = torch.zeros((n, HEIGHT, WIDTH), dtype=torch.int32,
-                                device=dev)
+            color = (torch.zeros((n, HEIGHT, WIDTH), dtype=torch.int32,
+                                 device=dev) if plane is None else plane)
             depth = torch.zeros(color.shape, device=dev)
             tr = rb.prep_xray(surf, e.flat.f_group, settings.use_zbuffer)
             tables = rb.face_tables(surf, atlas, WIDTH, HEIGHT)
-            return rb.composite_ref(color, depth, tr, tables, atlas, shading,
-                                    mode)
+            out = rb.composite_ref(color, depth, tr, tables, atlas, shading,
+                                   mode)
+            if sky is None:
+                return out, None
+            return out, dict(
+                face=torch.zeros_like(mtn), mtn=mtn, stars=stars,
+                blended=drawn_mask(color, depth, tr, tables, atlas, mode))
         prep = prep_for(e, surf, settings)
         planes = rb.visibility_ref(prep, atlas, HEIGHT, WIDTH,
                                    painters=not settings.use_zbuffer)
         color = rb.resolve_ref(prep, atlas, *planes[1:], shading, 0)
+        face = color != 0          # a drawn word has alpha 255
+        if sky is not None:
+            color = torch.where(face, color, plane)
+            if sky.stars_enabled and in_kernel:
+                bare = color
+                color = sky_ops.scatter_stars(color, planes[0], sky, cams,
+                                              time=sky.time)
+                stars = int((color != bare).sum())
+        blended = torch.zeros_like(face)
         if e.flat_static.transparent_idx:
             tr = rb.prep_transparent(surf, e.flat_static.transparent_idx)
+            if sky is not None:
+                blended = drawn_mask(color, planes[0], tr, prep, atlas, mode)
             color = rb.composite_ref(color, planes[0], tr, prep, atlas,
                                      shading, mode)
-        return color
+        if sky is None:
+            return color, None
+        return color, dict(face=face, mtn=mtn, stars=stars, blended=blended)
+
+    def channel_step(a, b):
+        """Largest per-channel difference of two packed RGBA8 planes."""
+        out = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+        for sh in (0, 8, 16, 24):
+            out = torch.maximum(out, (((a >> sh) & 255).long()
+                                      - ((b >> sh) & 255).long()).abs())
+        return out
+
+    def sky_classes(label, kern, plain, cls, blend_limit):
+        """Hold a frame over a sky against its plain version by pixel
+        class; returns the share of plain sky pixels one step off."""
+        step = channel_step(kern, plain)
+        face = cls["face"] & ~cls["blended"]
+        mtn = cls["mtn"] & ~cls["face"] & ~cls["blended"]
+        sky = ~cls["face"] & ~cls["mtn"] & ~cls["blended"]
+        counts = dict(face=int(face.sum()), mountain=int(mtn.sum()),
+                      sky=int(sky.sum()), blended=int(cls["blended"].sum()))
+        bad = dict(face=int((step[face] > 0).sum()),
+                   mountain=int((step[mtn] > 0).sum()),
+                   sky_beyond_one_step=int((step[sky] > 1).sum()),
+                   blended_beyond_limit=int(
+                       (step[cls["blended"]] > blend_limit).sum()))
+        off = int((step[sky] == 1).sum())
+        share = off / max(counts["sky"], 1)
+        print(f"{label}: pixels by class {counts}, star pixels "
+              f"{cls['stars']}; differing {bad}; sky pixels one step off "
+              f"{off} ({share:.6%}); blended pixels off "
+              f"{int((step[cls['blended']] > 0).sum())} (limit "
+              f"{blend_limit} a channel); sky share of the frame "
+              f"{(counts['sky'] + counts['mountain']) / step.numel():.3f}")
+        if any(bad.values()):
+            _fail(f"{label}: disagrees with the plain version: {bad}")
+        if counts["sky"] == 0 or counts["mountain"] == 0:
+            _fail(f"{label}: no sky or no mountain pixel was drawn")
+        return share
 
     def differing(kern, plain, names):
         return {n: int((k != p).sum()) for n, k, p in zip(names, kern,
@@ -289,6 +431,95 @@ def run(dev):
         if per_mode.get(mname, 0) == 0:
             _fail(f"blend mode {mname} drew no pixel")
 
+    phase_done("kernels vs plain, opaque and transparent level")
+
+    # ---- K5: the sky kernels vs their plain twins, N_CHECK instances ----
+    sky_share = {}
+    for sky_name, (lv, e, _, _) in sky_envs.items():
+        sst = rollout.initial_states(lv, spawn, N_CHECK, device=dev)
+        sst = stp.tick(sst, e.grid, e.params, acts_check, 1.0 / 60.0)
+        cams = stp.character_camera(sst, e.params)
+        scal = sky_ops.prep_sky_scal(e.sky, cams, WIDTH, HEIGHT)
+        k_sky = _cuda.raster_sky(e.sky, scal, HEIGHT, WIDTH)
+        p_sky = sky_ops.sky_plane_ref(e.sky, scal, HEIGHT, WIDTH)
+        sprep = prep_for(e, surf_for(e, sst, game), game)
+        svis = _cuda.raster_visibility(sprep, e.flat.atlas, HEIGHT, WIDTH)
+        bg = sky_ops.SkyBackground(e.sky, scal)
+        k_fused = _cuda.raster_resolve(sprep, e.flat.atlas, *svis[1:],
+                                       shading, bg)
+        p_fused = rb.resolve_ref(sprep, e.flat.atlas, *svis[1:], shading, bg)
+        k_over = _cuda.raster_resolve(sprep, e.flat.atlas, *svis[1:],
+                                      shading, k_sky)
+        starred = sky_ops.scatter_stars(k_fused, svis[0], e.sky, cams,
+                                        time=e.sky.time)
+        torch.cuda.synchronize()
+        mtn = sky_ops.mountain_mask(e.sky, scal, HEIGHT, WIDTH)
+        none = torch.zeros_like(mtn)
+        n_stars = int((starred != k_fused).sum())
+        sky_share[sky_name, "plane"] = sky_classes(
+            f"raster_sky vs plain, {sky_name} sky, N={N_CHECK}", k_sky,
+            p_sky, dict(face=none, mtn=mtn, blended=none, stars=n_stars), 0)
+        sky_share[sky_name, "fused"] = sky_classes(
+            f"raster_resolve + sky vs plain, {sky_name} sky, N={N_CHECK}",
+            k_fused, p_fused, dict(face=svis[1] >= 0, mtn=mtn, blended=none,
+                                   stars=n_stars), 0)
+        plane_vs_fused = int((k_over != k_fused).sum())
+        print(f"resolve over the raster_sky plane vs resolve with the sky "
+              f"fused, {sky_name} sky: {plane_vs_fused} differing pixels")
+        if plane_vs_fused:
+            _fail("the two entry points of the sky disagree")
+        if e.sky.stars_enabled and n_stars == 0:
+            _fail(f"{sky_name} sky: no star pixel was drawn")
+        err[f"raster_sky_{sky_name}"] = int(channel_step(k_sky, p_sky).max())
+        err[f"raster_resolve_sky_{sky_name}"] = int(
+            channel_step(k_fused, p_fused).max())
+    phase_done("sky kernels vs plain")
+
+    # ---- K7: select_gather vs its twin and torch.take ----
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED)
+    gidx = torch.randint(-GATHER_TABLE // 8, GATHER_TABLE + GATHER_TABLE // 8,
+                         (N_MAIN, HEIGHT, WIDTH), generator=gen, device=dev,
+                         dtype=torch.int32)
+    gtables = {
+        "i32": torch.randint(-2 ** 31, 2 ** 31 - 1, (GATHER_TABLE,),
+                             generator=gen, device=dev, dtype=torch.int32),
+        "f32": torch.randn(GATHER_TABLE, generator=gen, device=dev)}
+    out_of_range = (int((gidx < 0).sum()), int((gidx >= GATHER_TABLE).sum()))
+    gdiff = {}
+    for kind, table in gtables.items():
+        got = tg.select_gather(table, gidx)
+        want = tg.select_gather_ref(table, gidx)
+        torch.cuda.synchronize()
+        gdiff[kind] = int((got != want).sum())
+        del got, want
+    print(f"select_gather vs plain: table {GATHER_TABLE} entries, "
+          f"{gidx.numel()} indices ({out_of_range[0]} below 0, "
+          f"{out_of_range[1]} past the end): differing elements {gdiff}")
+    if any(gdiff.values()):
+        _fail(f"select_gather disagrees with its twin: {gdiff}")
+    if min(out_of_range) == 0:
+        _fail("no index out of range on one side")
+    err["select_gather"] = 0
+    # Nothing in the package calls select_gather, so no main path below
+    # launches it (each asserts a count of 0).  Its own path is its entry
+    # point alone: driven here once per table type with the counts reset
+    # before and read after, apart from the comparison above.
+    reset_counts()
+    for table in gtables.values():
+        got = tg.select_gather(table, gidx)
+        if got.shape != gidx.shape or got.dtype != table.dtype:
+            _fail(f"select_gather: {tuple(got.shape)} {got.dtype}")
+        del got
+    torch.cuda.synchronize()
+    gather_counts = read_counts()
+    print(f"select_gather alone (no caller in the package): launches "
+          f"{gather_counts}")
+    if gather_counts != {**dict.fromkeys(gather_counts, 0),
+                         "select_gather": len(gtables)}:
+        _fail(f"select_gather alone: launches {gather_counts}")
+    phase_done("select_gather vs plain and alone")
+
     # ---- main paths: the user's entry point, counters reset before ----
     def main_path(e, lvl, settings, n_frames, n_warm, want, label):
         rng = np.random.default_rng(SEED + 1)
@@ -316,7 +547,8 @@ def run(dev):
         print(f"main path, {label}: N={N_MAIN} {WIDTH}x{HEIGHT}, "
               f"{n_frames} frames, launches {counts}, min coverage "
               f"{cover:.3f}")
-        for name, per_frame in want.items():
+        for name in counts:
+            per_frame = want.get(name, 0)
             if counts[name] != per_frame * n_frames:
                 _fail(f"{label}: {name} launched {counts[name]} times in "
                       f"{n_frames} frames")
@@ -337,17 +569,31 @@ def run(dev):
             _fail(f"{label}: only {distinct} instances differ from "
                   f"instance 0")
         sub = type(states)(*(x[:N_CHECK] for x in states))
-        ref_diff = int((plain_render(e, sub, settings)
-                        != fbs.color[:N_CHECK]).sum())
-        print(f"main path, {label}: output vs plain render of {N_CHECK} "
-              f"instances: {ref_diff} differing pixels; {distinct} of "
-              f"{N_MAIN} instances differ from instance 0")
-        if ref_diff:
-            _fail(f"{label}: the main path's frame disagrees with the "
-                  f"plain path")
+        plain_color, cls = plain_render(e, sub, settings)
+        if cls is None:
+            ref_diff = int((plain_color != fbs.color[:N_CHECK]).sum())
+            print(f"main path, {label}: output vs plain render of "
+                  f"{N_CHECK} instances: {ref_diff} differing pixels; "
+                  f"{distinct} of {N_MAIN} instances differ from instance 0")
+            if ref_diff:
+                _fail(f"{label}: the main path's frame disagrees with the "
+                      f"plain path")
+        else:
+            # a sky pixel one step off under a blended face moves the
+            # blend's 5-bit result by at most one, 8 in 8 bits; x-ray's
+            # 8-bit average keeps the one step
+            sky_share[label] = sky_classes(
+                f"main path, {label}: output vs plain render of {N_CHECK} "
+                f"instances", fbs.color[:N_CHECK], plain_color, cls,
+                1 if settings.xray_mode else 8)
+            if e.sky.stars_enabled and not cls["stars"]:
+                _fail(f"{label}: no star pixel was drawn")
+            print(f"main path, {label}: {distinct} of {N_MAIN} instances "
+                  f"differ from instance 0")
+        phase_done(f"main path, {label}")
         return counts, ms, start, acts
 
-    vis, res, comp = (k.__name__ for k in kernels)
+    vis, res, comp, ksky, kgather = (k.__name__ for k in kernels)
     runs = {}
     runs["opaque"] = main_path(env, level, game, FRAMES, WARMUP,
                                {vis: 1, res: 1, comp: 0}, "opaque level")
@@ -358,6 +604,19 @@ def run(dev):
                              {vis: 0, res: 0, comp: 1}, "x-ray")
     runs["painters"] = main_path(tenv, tlevel, painters, MODE_FRAMES, 1,
                                  {vis: 1, res: 1, comp: 1}, "painter's")
+    # over a sky: in-kernel route, sky-buffer route, x-ray, painter's
+    runs["sky"] = main_path(senv, slevel, game, FRAMES, WARMUP,
+                            {vis: 1, res: 1}, "open-air, night sky")
+    runs["sky_transparent"] = main_path(
+        stenv, stlevel, game, FRAMES, WARMUP,
+        {ksky: 1, vis: 1, res: 1, comp: 1},
+        "transparent open-air, night sky")
+    _, _, sunlevel, sunenv = sky_envs["sunset"]
+    runs["sky_xray"] = main_path(sunenv, sunlevel, xray, MODE_FRAMES, 1,
+                                 {ksky: 1, comp: 1}, "x-ray, sunset sky")
+    runs["sky_painters"] = main_path(
+        sunenv, sunlevel, painters, MODE_FRAMES, 1,
+        {ksky: 1, vis: 1, res: 1, comp: 1}, "painter's, sunset sky")
 
     # ---- timing: frame stages, kernels and their plain twins ----
     # Each stage between synchronizes: the eager stages are launch-bound,
@@ -374,42 +633,80 @@ def run(dev):
         return out, evs[0].elapsed_time(evs[1]) / FRAMES
 
     def replay(e, key):
-        """The stages of the counted frames of run `key`, replayed."""
+        """The stages of the counted frames of run `key`, replayed, routed
+        as rollout.render_cameras routes under `game` settings.  Returns
+        the stage sums and the last frame's intermediates."""
         _, _, states, acts = runs[key]
-        stage = dict(tick=0.0, surfaces_prep=0.0, visibility=0.0,
-                     resolve=0.0, composite=0.0)
         idx = e.flat_static.transparent_idx
+        sky = e.sky
+        in_kernel = sky is not None and sky_ops.sky_kernel_ok(
+            sky, e.flat_static, game)
+        names = ["tick", "surfaces_prep"]
+        if sky is not None and not in_kernel:
+            names += ["sky_plane", "stars"]
+        names += ["visibility", "resolve"]
+        if in_kernel and sky.stars_enabled:
+            names += ["stars"]
+        if idx:
+            names += ["composite"]
+        stage = dict.fromkeys(names, 0.0)
+        last = {}
         for f in range(FRAMES):
             states, ms = timed(lambda s=states, a=acts[f]: stp.tick(
                 s, e.grid, e.params, a, 1.0 / 60.0))
             stage["tick"] += ms
 
             def surfaces_prep(s=states):
-                surf = surf_for(e, s, game)
+                cams = stp.character_camera(s, e.params)
+                surf = scene_flat.build_surfaces_flat(e.flat, cams, game,
+                                                      WIDTH, HEIGHT)
                 return (prep_for(e, surf, game),
-                        rb.prep_transparent(surf, idx) if idx else None)
-            (prep, tr), ms = timed(surfaces_prep)
+                        rb.prep_transparent(surf, idx) if idx else None,
+                        cams, sky_ops.prep_sky_scal(sky, cams, WIDTH, HEIGHT)
+                        if sky is not None else None)
+            (prep, tr, cams, scal), ms = timed(surfaces_prep)
             stage["surfaces_prep"] += ms
+            bg = 0
+            if in_kernel:
+                bg = sky_ops.SkyBackground(sky, scal)
+            elif sky is not None:
+                bg, ms = timed(lambda q=scal: _cuda.raster_sky(
+                    sky, q, HEIGHT, WIDTH))
+                stage["sky_plane"] += ms
+                bg, ms = timed(lambda c=bg, m=cams: sky_ops.scatter_stars(
+                    c, None, sky, m, time=sky.time))
+                stage["stars"] += ms
             planes, ms = timed(lambda p=prep: _cuda.raster_visibility(
                 p, e.flat.atlas, HEIGHT, WIDTH))
             stage["visibility"] += ms
-            color, ms = timed(lambda p=prep, q=planes: _cuda.raster_resolve(
-                p, e.flat.atlas, *q[1:], shading, 0))
+            color, ms = timed(lambda p=prep, q=planes, g=bg:
+                              _cuda.raster_resolve(p, e.flat.atlas, *q[1:],
+                                                   shading, g))
             stage["resolve"] += ms
+            if in_kernel and sky.stars_enabled:
+                color, ms = timed(lambda c=color, q=planes, m=cams:
+                                  sky_ops.scatter_stars(c, q[0], sky, m,
+                                                        time=sky.time))
+                stage["stars"] += ms
             if idx:
                 _, ms = timed(lambda c=color, p=prep, q=planes, t=tr:
                               _cuda.raster_composite(
                                   c, q[0], t, p, e.flat.atlas, shading,
                                   ZBUF))
                 stage["composite"] += ms
-        if not idx:
-            del stage["composite"]
-        return stage, prep, planes, color, tr
+            last = dict(prep=prep, planes=planes, color=color, tr=tr,
+                        scal=scal)
+        return stage, last
 
     stages = {}
-    stages["opaque"], *_ = replay(env, "opaque")
-    stages["transparent"], prep, planes, color, tr = replay(tenv,
-                                                            "transparent")
+    stages["opaque"], _ = replay(env, "opaque")
+    stages["transparent"], last = replay(tenv, "transparent")
+    prep, planes, color, tr = (last[k] for k in ("prep", "planes", "color",
+                                                 "tr"))
+    stages["open-air, night sky"], sky_last = replay(senv, "sky")
+    stages["transparent open-air, night sky"], _ = replay(stenv,
+                                                          "sky_transparent")
+    phase_done("stage replays")
 
     # the other modes' inputs at N_MAIN, from the transparent run's states
     _, _, start, acts = runs["transparent"]
@@ -478,6 +775,52 @@ def run(dev):
         lambda sl: rb.composite_ref(clear[sl], zero_depth[sl],
                                     part(xtr, sl), part(xprep, sl), tatlas,
                                     shading, XRAY))
+
+    phase_done("kernel and plain timings, earlier kernels")
+
+    # the sky at N_MAIN: the open-air run's last replayed frame (night,
+    # fused and alone), and the sunset sky from the same cameras' tables
+    sprep, splanes, sscal = (sky_last[k] for k in ("prep", "planes", "scal"))
+    satlas = senv.flat.atlas
+    night = senv.sky
+    sunset = sky_envs["sunset"][1].sky
+    sun_scal = sky_ops.prep_sky_scal(
+        sunset, stp.character_camera(
+            stp.tick(runs["sky"][2], senv.grid, senv.params,
+                     runs["sky"][3][0], 1.0 / 60.0), senv.params),
+        WIDTH, HEIGHT)
+    sbg = sky_ops.SkyBackground(night, sscal)
+    fused = "raster_resolve_sky"
+    ms[fused] = kernel_ms(lambda: _cuda.raster_resolve(
+        sprep, satlas, *splanes[1:], shading, sbg))
+    resolve_const_ms = kernel_ms(lambda: _cuda.raster_resolve(
+        sprep, satlas, *splanes[1:], shading, 0))
+    plain[fused] = chunked_plain_ms(lambda sl: rb.resolve_ref(
+        part(sprep, sl), satlas, *(p[sl] for p in splanes[1:]), shading,
+        sky_ops.SkyBackground(night, sscal[sl])))
+    ms[ksky] = kernel_ms(lambda: _cuda.raster_sky(night, sscal, HEIGHT,
+                                                  WIDTH))
+    plain[ksky] = chunked_plain_ms(lambda sl: sky_ops.sky_plane_ref(
+        night, sscal[sl], HEIGHT, WIDTH))
+    ms["raster_sky_sunset"] = kernel_ms(lambda: _cuda.raster_sky(
+        sunset, sun_scal, HEIGHT, WIDTH))
+    plain["raster_sky_sunset"] = chunked_plain_ms(
+        lambda sl: sky_ops.sky_plane_ref(sunset, sun_scal[sl], HEIGHT,
+                                         WIDTH))
+    # where the sky's time goes: the same launches without the mountains
+    bare_ms = {name: kernel_ms(lambda sk=sk, sc=sc: _cuda.raster_sky(
+        sk._replace(face_table=sk.face_table[:0]), sc, HEIGHT, WIDTH))
+        for name, sk, sc in (("night", night, sscal),
+                             ("sunset", sunset, sun_scal))}
+    ms[kgather] = kernel_ms(lambda: tg.select_gather(gtables["i32"], gidx))
+    plain[kgather] = kernel_ms(lambda: tg.select_gather_ref(gtables["i32"],
+                                                            gidx))
+    gather_f32_ms = kernel_ms(lambda: tg.select_gather(gtables["f32"], gidx))
+    clamped = gidx.long().clamp(0, GATHER_TABLE - 1)
+    library = {kgather: kernel_ms(lambda: torch.take(gtables["i32"],
+                                                     clamped))}
+    del clamped
+    phase_done("kernel and plain timings, sky and gather")
 
     # ---- bounds: bytes or f32 operations, from this run's inputs ----
     # Bytes: each input the function needs read once, each output written
@@ -555,40 +898,170 @@ def run(dev):
         OPS_COVER * bbox_area(xprep, xtr.tctrl[..., rb.T_FID], live(xtr))
         + OPS_PIPELINE * drawn_x)
 
+    # The sky: 4 bytes written per pixel it shows on (its scalar table and
+    # face table are a few KB an instance) against the operations counted
+    # above the constants OPS_SKY_*: the sphere's on the pixels no mountain
+    # covers (a covered pixel never evaluates it), and a mountain face's on
+    # its clipped bbox.  Fused into resolve, the launch's bound is
+    # resolve's own terms plus the sky's operations on the pixels no face
+    # drew.
+    def sky_ops_per_pixel(sky):
+        k = sky_ops.sky_consts(sky.skybox)
+        n = OPS_SKY_RAY + OPS_TRANSCENDENTAL + OPS_SKY_GRADIENT
+        if k["need_theta"]:
+            n += OPS_TRANSCENDENTAL + 2
+        n += OPS_SKY_TINT * k["tint_enabled"]
+        n += OPS_SKY_HAZE * k["haze_enabled"]
+        n += OPS_SKY_BODY_GATE * sum(b["enabled"] for b in k["body"])
+        n += OPS_SKY_CLOUD * sum(c["enabled"] for c in k["cloud"])
+        return n
+
+    def mountain_bbox_area(sky, scal):
+        nf = sky.face_table.shape[0]
+        lo_y = scal[:, sky_ops.R_YMIN, :nf].clamp(0, HEIGHT)
+        hi_y = scal[:, sky_ops.R_YMAX, :nf].clamp(0, HEIGHT)
+        lo_x = scal[:, sky_ops.R_XMIN, :nf].clamp(0, WIDTH)
+        hi_x = scal[:, sky_ops.R_XMAX, :nf].clamp(0, WIDTH)
+        return int(((hi_y - lo_y).clamp(min=0)
+                    * (hi_x - lo_x).clamp(min=0)).sum())
+
+    def sky_pixels(sky, scal, shows=None):
+        """(pixels the sky shows on, those of them no mountain covers);
+        `shows` is an (N, H, W) mask, or None for the whole plane."""
+        n_shown = n_sphere = 0
+        for s in range(0, N_MAIN, PLAIN_CHUNK):
+            sl = slice(s, s + PLAIN_CHUNK)
+            free = ~sky_ops.mountain_mask(sky, scal[sl], HEIGHT, WIDTH)
+            if shows is not None:
+                free &= shows[sl]
+            n_shown += free.numel() if shows is None else int(shows[sl].sum())
+            n_sphere += int(free.sum())
+        return n_shown, n_sphere
+
+    def sky_bound(sky, scal, px, extra_bytes=0, extra_ops=0):
+        n_shown, n_sphere = px
+        return bound(4 * n_shown + nbytes(scal, sky.face_table)
+                     + extra_bytes,
+                     sky_ops_per_pixel(sky) * n_sphere
+                     + OPS_SKY_FACE * mountain_bbox_area(sky, scal)
+                     + extra_ops)
+
+    sky_px = {ksky: sky_pixels(night, sscal),
+              "raster_sky_sunset": sky_pixels(sunset, sun_scal)}
+    bounds[ksky] = sky_bound(night, sscal, sky_px[ksky])
+    bounds["raster_sky_sunset"] = sky_bound(sunset, sun_scal,
+                                            sky_px["raster_sky_sunset"])
+    swin = splanes[1]
+    n_sfaces = sprep.attrs.shape[1]
+    srow = (torch.arange(N_MAIN, device=dev)[:, None, None] * n_sfaces
+            + swin.long())[swin >= 0]
+    swon = torch.zeros(N_MAIN * n_sfaces, dtype=torch.bool, device=dev)
+    swon[srow] = True
+    # the sky shows where resolve drew no face (none won, or the winner's
+    # texel is keyed out): over a word of alpha 0, the pixels still at 0
+    shows = ((_cuda.raster_resolve(sprep, satlas, *splanes[1:], shading, 0)
+              >> 24) & 255) == 0
+    sky_px[fused] = sky_pixels(night, sscal, shows)
+    n_face_px = plane - sky_px[fused][0]
+    del shows
+    satlas_b = nbytes(satlas.data, satlas.offset, satlas.width,
+                      satlas.height)
+    # the colour plane's 4 B a pixel are in the 16 B of resolve's planes
+    bounds[fused] = sky_bound(
+        night, sscal, sky_px[fused],
+        extra_bytes=int(swon.sum()) * 4 * 20 + satlas_b + 12 * plane
+        + 4 * n_face_px,
+        extra_ops=OPS_PIPELINE * n_face_px)
+    bounds[kgather] = bound(8 * gidx.numel() + nbytes(gtables["i32"]), 0)
+    print(f"{fused}: with the night sky {ms[fused]:.3f} ms, the same launch "
+          f"over a constant word {resolve_const_ms:.3f} ms; "
+          f"{(plane - n_face_px) / plane:.3f} of the pixels show the sky "
+          f"(N={N_MAIN}, open-air level) {card}")
+    print("pixels the sky shows on, and those of them that evaluate the "
+          "sphere (no mountain covers them): "
+          + ", ".join(f"{k} {n} / {m}" for k, (n, m) in sky_px.items())
+          + f" (N={N_MAIN})")
+    print(f"raster_sky without its mountain faces: night "
+          f"{bare_ms['night']:.3f} ms (with: {ms[ksky]:.3f}), sunset "
+          f"{bare_ms['sunset']:.3f} ms (with: "
+          f"{ms['raster_sky_sunset']:.3f}) {card}")
+    print(f"{kgather}: i32 {ms[kgather]:.3f} ms, f32 {gather_f32_ms:.3f} ms, "
+          f"torch.take {library[kgather]:.3f} ms, plain "
+          f"{plain[kgather]:.3f} ms, bound {bounds[kgather][0]:.3f} ms "
+          f"({gidx.numel()} indices, {GATHER_TABLE}-entry table) {card}")
+    print("sky pixels one step off the plain version, share: "
+          + ", ".join(f"{k if isinstance(k, str) else ' '.join(k)} {v:.6%}"
+                      for k, v in sky_share.items()))
+
     for key, label in (("opaque", "opaque level"),
                        ("transparent", "transparent level"),
-                       ("xray", "x-ray"), ("painters", "painter's")):
+                       ("xray", "x-ray"), ("painters", "painter's"),
+                       ("sky", "open-air, night sky"),
+                       ("sky_transparent", "transparent open-air, night sky"),
+                       ("sky_xray", "x-ray, sunset sky"),
+                       ("sky_painters", "painter's, sunset sky")):
         f_ms = runs[key][1]
         print(f"frame, {label}: {f_ms:.3f} ms per batched frame of "
               f"{N_MAIN} instances = {N_MAIN * 1000.0 / f_ms:.1f} "
               f"instance-frames/s (step_and_render, CUDA events) {card}")
     for key, stage in stages.items():
-        print(f"stages, {key} level (ms per frame, CUDA events, "
+        print(f"stages, {key} (ms per frame, CUDA events, "
               f"synchronized per stage): "
               + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
               + f", sum {sum(stage.values()):.3f} {card}")
+    sky_kernels = (fused, ksky, "raster_sky_sunset", kgather)
     for name in ms:
+        where = ("open-air level" if name in sky_kernels
+                 else "transparent level")
         print(f"{name}: kernel {ms[name]:.3f} ms, plain {plain[name]:.3f} "
               f"ms, bound {bounds[name][0]:.3f} ms ({bounds[name][1]}) "
-              f"(N={N_MAIN}, transparent level, plain in chunks of "
+              f"(N={N_MAIN}, {where}, plain in chunks of "
               f"{PLAIN_CHUNK}) {card}")
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
                 comp: t_counts[comp],
                 "raster_visibility_painters": runs["painters"][0][vis],
-                "raster_composite_xray": runs["xray"][0][comp]}
+                "raster_composite_xray": runs["xray"][0][comp],
+                # the sky: fused in the open-air run's resolve launches;
+                # alone in the sky-buffer runs (night: the transparent
+                # open-air run; sunset: x-ray and painter's); the gather
+                # has no caller on any of those paths (each asserted its
+                # count 0): its count is that of its entry point driven
+                # alone, and `counted_on` says so
+                fused: runs["sky"][0][res],
+                ksky: runs["sky_transparent"][0][ksky],
+                "raster_sky_sunset": (runs["sky_xray"][0][ksky]
+                                      + runs["sky_painters"][0][ksky]),
+                kgather: gather_counts[kgather]}
+    counted_on = {vis: "transparent level", res: "transparent level",
+                  comp: "transparent level",
+                  "raster_visibility_painters": "painter's",
+                  "raster_composite_xray": "x-ray",
+                  fused: "open-air, night sky",
+                  ksky: "transparent open-air, night sky",
+                  "raster_sky_sunset": "x-ray and painter's, sunset sky",
+                  kgather: "its entry point alone: on no main path, "
+                           "nothing in the package calls it"}
     replaces = {vis: f"{JAX_RB}:859",
                 "raster_visibility_painters": f"{JAX_RB}:941",
                 res: f"{JAX_RB}:1098",
                 comp: f"{JAX_RB}:1562",
-                "raster_composite_xray": f"{JAX_RB}:1713"}
+                "raster_composite_xray": f"{JAX_RB}:1713",
+                fused: f"{JAX_RB}:1525", ksky: f"{JAX_RB}:712",
+                "raster_sky_sunset": f"{JAX_RB}:712",
+                kgather: f"{JAX_GATHER}:60"}
+    err[fused] = max(err["raster_resolve_sky_night"],
+                     err["raster_resolve_sky_sunset"])
+    err[ksky] = err["raster_sky_night"]
     print(json.dumps({"kernels": [
-        {"name": name, "route": "cuda", "source": SRC,
+        {"name": name, "route": "cuda",
+         "source": GATHER_SRC if name == kgather else SRC,
          "replaces": replaces[name], "launches": launches[name],
          "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
-         "library_ms": None} for name in ms]}))
+         "library_ms": library.get(name), "counted_on": counted_on[name]}
+        for name in ms]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

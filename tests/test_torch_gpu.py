@@ -8,7 +8,11 @@ jax, hence --noconftest there:
 The kernels of csrc/raster.cu are held against their plain torch twins
 bit for bit (both sides are uncontracted IEEE f32 in the same order), and
 the main paths (opaque, transparent, x-ray, painter's) are shown to
-launch them once per frame and to equal the CPU render.
+launch them once per frame and to equal the CPU render.  The sky
+(`raster_sky`, and `raster_resolve` with the sky behind the faces) is
+exact on face and mountain pixels and within one 8-bit step on the other
+sky pixels (acos, atan2, sin and pow differ by ulps between nvcc's and
+torch's libraries); `select_gather` of csrc/gather.cu is exact.
 """
 
 import numpy as np
@@ -18,10 +22,13 @@ import torch
 import torch_scenes as ts
 from bonnie32_tpu_torch import rollout
 from bonnie32_tpu_torch.models import level as L
+from bonnie32_tpu_torch.models import skybox as S
 from bonnie32_tpu_torch.config import RasterSettings
 from bonnie32_tpu_torch.game import step as stp
 from bonnie32_tpu_torch.models import scene_flat
+from bonnie32_tpu_torch.ops import gather as tg
 from bonnie32_tpu_torch.ops import raster_batch as rb
+from bonnie32_tpu_torch.ops import skybox as sky_ops
 from bonnie32_tpu_torch.types import CameraArrays
 
 pytestmark = pytest.mark.gpu
@@ -189,3 +196,118 @@ def test_transparent_main_path_matches_cpu(tenv, mode):
         CameraArrays(*(x.cpu() for x in cams)), settings, H, W)
     assert torch.equal(out.color, fbs.color.cpu())
     assert torch.equal(out.depth, fbs.depth.cpu())
+
+
+# ---- the sky (K5) and the gather (K7) ----
+
+def _step(a, b):
+    """Largest per-channel difference of two packed RGBA8 planes."""
+    out = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+    for s in (0, 8, 16, 24):
+        out = torch.maximum(out, (((a >> s) & 255).long()
+                                  - ((b >> s) & 255).long()).abs())
+    return out
+
+
+@pytest.fixture(scope="module", params=["night", "sunset"])
+def sky_env(request, env):
+    _, dev, _ = env
+    level = ts.open_air_level(L, S, request.param)
+    return level, dev, rollout.build_env(level, ts.textures(), ts.resolver,
+                                         device=dev)
+
+
+def test_sky_kernels_match_twin(sky_env):
+    from bonnie32_tpu_torch.ops import _cuda
+    level, dev, e = sky_env
+    settings = RasterSettings.game()
+    states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                    device=dev)
+    states = stp.tick(states, e.grid, e.params,
+                      _actions(np.random.default_rng(4), dev), 1.0 / 60.0)
+    cams = stp.character_camera(states, e.params)
+    scal = sky_ops.prep_sky_scal(e.sky, cams, W, H)
+    kern = _cuda.raster_sky(e.sky, scal, H, W)
+    plain = sky_ops.sky_plane_ref(e.sky, scal, H, W)
+    mtn = sky_ops.mountain_mask(e.sky, scal, H, W)
+    torch.cuda.synchronize()
+    assert int(mtn.sum()) > 0
+    assert torch.equal(kern[mtn], plain[mtn])
+    step = _step(kern, plain)
+    assert int(step.max()) <= 1
+    assert float((step > 0).float().mean()) < 0.01
+    # fused: the sky behind the faces
+    surf = scene_flat.build_surfaces_flat(e.flat, cams, settings, W, H)
+    prep = rb.prep_instance(surf, e.flat.atlas, W, H)
+    depth, winner, bcx, bcy = _cuda.raster_visibility(prep, e.flat.atlas, H,
+                                                      W)
+    bg = sky_ops.SkyBackground(e.sky, scal)
+    kc = _cuda.raster_resolve(prep, e.flat.atlas, winner, bcx, bcy, 2, bg)
+    pc = rb.resolve_ref(prep, e.flat.atlas, winner, bcx, bcy, 2, bg)
+    over = _cuda.raster_resolve(prep, e.flat.atlas, winner, bcx, bcy, 2,
+                                kern)
+    torch.cuda.synchronize()
+    face = depth != 0
+    assert 0 < int(face.sum()) < face.numel()
+    assert torch.equal(kc[face], pc[face])
+    assert torch.equal(kc[mtn & ~face], pc[mtn & ~face])
+    assert int(_step(kc, pc).max()) <= 1
+    # one sky function behind both entry points: fused == plane route
+    assert torch.equal(kc, over)
+
+
+@pytest.mark.parametrize("transparent", [False, True])
+def test_sky_main_path_routes_and_matches_cpu(env, transparent):
+    from bonnie32_tpu_torch.ops import _cuda
+    _, dev, _ = env
+    build = ts.transparent_open_air_level if transparent \
+        else ts.open_air_level
+    textures = ts.transparent_textures if transparent else ts.textures
+    level = build(L, S, "night")
+    e = rollout.build_env(level, textures(), ts.resolver, device=dev)
+    settings = RasterSettings.game()
+    states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                    device=dev)
+    ks = (_cuda.raster_sky, _cuda.raster_visibility, _cuda.raster_resolve,
+          _cuda.raster_composite)
+    before = [k.launches for k in ks]
+    states, fbs = rollout.step_and_render(
+        states, e, _actions(np.random.default_rng(5), dev), settings,
+        height=H, width=W)
+    ran = [k.launches - b for k, b in zip(ks, before)]
+    # stars with transparent faces: the sky-buffer route
+    assert ran == ([1, 1, 1, 1] if transparent else [0, 1, 1, 0])
+    cams = stp.character_camera(states, e.params)
+    cpu_env = rollout.build_env(level, textures(), ts.resolver, device="cpu")
+    out = rollout.render_cameras(
+        cpu_env, CameraArrays(*(x.cpu() for x in cams)), settings, H, W)
+    assert torch.equal(out.depth, fbs.depth.cpu())
+    face = out.depth != 0
+    if not transparent:
+        assert torch.equal(out.color[face], fbs.color.cpu()[face])
+    step = _step(out.color, fbs.color.cpu())
+    # a sky pixel one step off under a blended face can move the blend's
+    # 5-bit result by one, which is 8 in 8 bits
+    assert int(step.max()) <= (8 if transparent else 1)
+    assert float((step > 1).float().mean()) < 0.001
+    assert float((step > 0).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.float32])
+def test_select_gather_matches_twin(env, dtype):
+    _, dev, _ = env
+    rng = np.random.default_rng(6)
+    size = 32768
+    table = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, size,
+                                          dtype=np.int64).astype(np.int32))
+    table = (table if dtype == torch.int32
+             else table.to(torch.float32)).to(dev)
+    idx = torch.from_numpy(rng.integers(-5000, size + 5000, (4, 240, 320))
+                           .astype(np.int32)).to(dev)
+    before = tg.select_gather.launches
+    out = tg.select_gather(table, idx)
+    torch.cuda.synchronize()
+    assert tg.select_gather.launches == before + 1
+    assert torch.equal(out, tg.select_gather_ref(table, idx))
+    with pytest.raises(ValueError):
+        tg.select_gather(table, idx.long())

@@ -66,3 +66,17 @@ def test_source_names_no_jax_package_module(path):
     assert "_host" not in text
     for quote in "'\"":
         assert f"{quote}bonnie32_tpu{quote}" not in text
+
+
+def test_every_cuda_source_has_a_loader_entry():
+    """Each .cu file of the package is a source of ops/_cuda.py's loader
+    (built at first use into a library named after it), and the loader
+    names no file that is missing."""
+    from bonnie32_tpu_torch.ops import _cuda
+    on_disk = sorted(p for p in PKG.rglob("*.cu"))
+    assert sorted(_cuda.SOURCES.values()) == on_disk
+    assert sorted(_cuda.SOURCES) == ["gather", "raster"]
+    for name in _cuda.SOURCES:
+        path = _cuda.library_path(name)
+        assert path.parent == _cuda.BUILD_DIR
+        assert path.name.startswith(name + "_") and path.suffix == ".so"

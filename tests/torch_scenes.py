@@ -12,6 +12,14 @@ all opaque; two of the four 64x64 checker textures carry black texels,
 so keyed faces occur.  `transparent_cave_level` glazes 20 of those faces
 with the PS1 blend modes, `transparent_two_room_level` glazes 8 faces of
 the second room only, and `cube_scene` is tests/scenes.py's cube.
+
+`open_air_level` is the same room under a sky: no ceiling, the perimeter
+walls lowered to OPEN_WALL, so that a third or more of a typical frame is
+sky, and `level.skybox` set from `sky_config` (the skybox module is an
+argument too, like the level module: each package parses the RON dict of
+its own Skybox class).  `transparent_open_air_level` glazes it like
+`transparent_cave_level`; with the night sky's stars that level takes the
+sky-buffer route.
 """
 
 import math
@@ -84,7 +92,52 @@ def _terrain(x, z):
         256.0 * (math.sin(0.9 * x) + math.cos(0.7 * z)) + 512.0))
 
 
-def cave_size_level(L):
+OPEN_WALL = 1536.0    # perimeter wall top of the open-air level
+
+
+def sky_config(S, name="night"):
+    """A Skybox of skybox module `S`.  "night": the night preset (one
+    mountain range, moon, haze, 150 twinkling stars) with the star size
+    raised from 1.8 to 3.0, so that all nine offsets of a sparkle draw
+    (at 1.8 only its centre does).  "sunset": the sunset preset (tint,
+    sun, haze, two cloud layers, one mountain range, no stars) plus a
+    second mountain range, so that every branch of the sky function and
+    both range slots run; "sunset_preset" is the preset as it is (the
+    JAX kernel's interpret-mode compile time grows with the number of
+    mountain faces, so its references use this one)."""
+    import dataclasses
+    if name == "night":
+        sb = S.Skybox.preset_night()
+        return dataclasses.replace(
+            sb, stars=dataclasses.replace(sb.stars, size=3.0))
+    if name == "sunset_preset":
+        return S.Skybox.preset_sunset()
+    if name == "sunset":
+        sb = S.Skybox.preset_sunset()
+        return dataclasses.replace(sb, mountain_ranges=[
+            sb.mountain_ranges[0],
+            S.MountainRange((150, 110, 150), (70, 50, 90), (230, 180, 190),
+                            0.22, 0.3, 0.7, 77777)])
+    raise ValueError(f"unknown sky {name!r}")
+
+
+def open_air_level(L, S, sky="night"):
+    """The Cave-size level without its ceiling and with the perimeter
+    walls lowered, under the sky `sky_config(S, sky)`."""
+    level = cave_size_level(L, ceiling=False, wall_top=OPEN_WALL)
+    level.skybox = sky_config(S, sky).to_ron()
+    return level
+
+
+def transparent_open_air_level(L, S, sky="night"):
+    """The open-air level with transparent_cave_level's 20 glazed
+    faces.  Render with transparent_textures()."""
+    level = transparent_cave_level(L, ceiling=False, wall_top=OPEN_WALL)
+    level.skybox = sky_config(S, sky).to_ron()
+    return level
+
+
+def cave_size_level(L, ceiling=True, wall_top=CEILING):
     """The level, built with level module `L`."""
     level = L.Level()
     room = L.Room.new(0, (0.0, 0.0, 0.0), ROOM, ROOM)
@@ -96,12 +149,13 @@ def cave_size_level(L):
                 heights=[_terrain(x, z), _terrain(x + 1, z),
                          _terrain(x + 1, z + 1), _terrain(x, z + 1)],
                 texture=tex["FLOOR"], split_direction=(x + z) % 2)
-            sec.ceiling = L.HorizontalFace.flat(CEILING, tex["CEIL"])
+            if ceiling:
+                sec.ceiling = L.HorizontalFace.flat(CEILING, tex["CEIL"])
     for i in range(ROOM):
-        room.add_wall(i, 0, L.NORTH, 0.0, CEILING, tex["WALL"])
-        room.add_wall(ROOM - 1, i, L.EAST, 0.0, CEILING, tex["WALL"])
-        room.add_wall(i, ROOM - 1, L.SOUTH, 0.0, CEILING, tex["WALL"])
-        room.add_wall(0, i, L.WEST, 0.0, CEILING, tex["WALL"])
+        room.add_wall(i, 0, L.NORTH, 0.0, wall_top, tex["WALL"])
+        room.add_wall(ROOM - 1, i, L.EAST, 0.0, wall_top, tex["WALL"])
+        room.add_wall(i, ROOM - 1, L.SOUTH, 0.0, wall_top, tex["WALL"])
+        room.add_wall(0, i, L.WEST, 0.0, wall_top, tex["WALL"])
     for x, z, d in ((3, 3, L.NORTH), (3, 3, L.EAST), (5, 4, L.SOUTH),
                     (2, 5, L.WEST)):
         room.add_wall(x, z, d, 0.0, CEILING * 0.75, tex["PILLAR"])
@@ -116,14 +170,15 @@ def _glaze(L, face, name, blend):
     face.blend_mode = blend
 
 
-def transparent_cave_level(L):
-    """The Cave-size level with 20 transparent faces: the four interior
+def transparent_cave_level(L, **kw):
+    """The Cave-size level (`kw` to cave_size_level) with 20 transparent
+    faces: the four interior
     wall pieces (GLASS, GLOW, SMOKE, TINT) and a 3x2 pool of floor
     sectors beside the spawn point, one per blend mode (VEIL, GLASS,
     GLOW, SMOKE, TINT) plus the opaque FLOOR texture under an AVERAGE face
     blend, transparent by the face flag alone.  Render with
     transparent_textures()."""
-    level = cave_size_level(L)
+    level = cave_size_level(L, **kw)
     room = level.rooms[0]
     for (x, z, d), name in zip(((3, 3, L.NORTH), (3, 3, L.EAST),
                                 (5, 4, L.SOUTH), (2, 5, L.WEST)),
