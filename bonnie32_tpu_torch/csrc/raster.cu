@@ -5,6 +5,11 @@
 // What each function replaces (TPU kernel bonnie32_tpu/ops/raster_batch.py,
 // `_make_kernel.kernel`, launched by `rasterize_batch` -> pl.pallas_call):
 //
+//   raster_bin         the clipping of each face's bbox to the row blocks it
+//                      reaches (one_face / block, :859-878: yb0, nblk, K_G0,
+//                      K_NG), which lets the TPU kernel walk a face over its
+//                      own blocks only: here, once per launch, a bit mask
+//                      per tile of the list entries whose bbox touches it.
 //   raster_visibility  phase 1, clean faces (one_face / block / _merge_body /
 //                      blk_clean) and keyed faces (blk_keyed / _keyed_body):
 //                      faces in compacted draw order, edge functions,
@@ -36,33 +41,57 @@
 //                      the editor-alpha lerp, or x-ray's 50% average.
 //
 // Design.  The TPU kernel walks faces sequentially over VMEM-resident
-// planes because its grid runs in order on one core.  Here one thread owns
-// one pixel: a 16x16 block walks its instance's compacted faces in draw
-// order, staging face records in shared memory a batch at a time and
-// skipping, block-uniformly, every face whose bbox misses the tile.  Each
-// thread keeps (depth, winner, bcx, bcy) in registers and writes the four
-// (I, H, W) planes once, so there are no atomics and the result is
-// deterministic.  The resolve kernel is one thread per pixel and reads the
-// winner's 32-float attribute row from global memory.  The composite
-// kernel has the visibility kernel's shape: a 16x16 block walks its
-// instance's composite list in order; warp 0 tests a batch of 32 entries
-// against the tile (valid, editor alpha, bbox) and compacts the live ones
-// with a ballot, the block stages their records in shared memory, and each
-// thread keeps its own colour word in a register, so the ordered blend
-// needs no atomics.
+// planes because its grid runs in order on one core, and each face only
+// over the blocks of its own bbox.  Here one block owns one 16x16 tile of
+// one instance's frame, and a tile pays only for the faces that touch it:
 //
-// What bounds it on the H100: the visibility kernel is bound by the
-// per-pixel face loop (every face whose bbox touches the tile costs each of
-// the tile's 256 threads ~20 f32 ops), not by memory: its output is 16 B a
-// pixel.  The resolve kernel reads three of those planes and writes the
-// colour (16 B a pixel) plus one attribute row and texel per covered
-// pixel, mostly L2 hits.  The composite kernel reads colour (and depth in
-// z-buffer mode) and writes colour, 8-12 B a pixel, only in the tiles that
-// a live entry's bbox touches; its work is the full pixel pipeline for
-// every pixel of every live entry's bbox in the tile, ~120 integer and f32
-// operations each.  The sky writes 4 B a pixel and is bound by its f32
-// operations: the ray (two divides, a square root), acos, atan2 where a
-// tint or a cloud needs the azimuth, a second acos and a pow per body
+//   * raster_bin runs first, one block an instance.  A warp owns 32
+//     consecutive entries of the ordered list (the kept faces through
+//     `order`, or the composite list): each lane reads its entry's clipped
+//     bbox ONCE and turns it into a range of tile columns and rows, and the
+//     warp then walks the tiles with one ballot each.  Out comes, per tile,
+//     ceil(L / 32) mask words whose bit order is draw order (so no consumer
+//     sorts, and the result is deterministic), and for the composite the
+//     list of (instance, tile) pairs with any bit, appended with one atomic
+//     add a block.  At N=1024, 320x240, L=328 the masks are 13.5 MB and
+//     stay in the 50 MB L2 until the consumer reads them.
+//   * The visibility kernel's block reads its tile's words (warp 0, one
+//     coalesced read), expands the set bits in order into list positions
+//     (prefix sum over the popcounts, __ffs), stages those faces' records
+//     in shared memory with 16-byte loads (16 attrs floats and the ctrl row
+//     through order[p]) and walks them.  A thread owns four rows of one
+//     column: it keeps (depth, winner, bcx, bcy) of its pixels in registers
+//     and writes the four (I, H, W) planes once, so there are no atomics; a
+//     tile is 64 threads, so 32 tiles are in flight on an SM, which hides
+//     the three dependent reads (words -> order -> rows) a tile starts with.
+//   * The composite kernel is a fixed grid (as many blocks as fit the card)
+//     that draws tiles from the work list through a cursor in device
+//     memory, so a tile no live entry touches costs nothing and blocks
+//     stay balanced though tiles differ in work by an order of magnitude.
+//     It stages per entry what the pixel pipeline would otherwise redo at
+//     every pixel (vertex colours unpacked to floats, the texture's offset
+//     and size), keeps each pixel's colour word in a register through the
+//     ordered blend, and writes it back only where an entry drew.
+//   * The resolve kernel is one thread per pixel and reads the winner's
+//     32-float attribute row from global memory.
+//
+// What bounds them on the H100 (numbers: PERF.md).  With every face of the
+// level staged and tested in every tile (the first port) the visibility
+// kernel spent 83% of its time on faces that do not touch the tile.  Binned,
+// a 16x16 tile holds 3.3 faces on average and the kernel is within a factor
+// of two of the 16 B a pixel it writes; what is left is the latency of the
+// dependent reads at the start of each tile, and the 45% of the tiles that
+// are empty still wait for their words before they may store.  Tile shapes
+// whose rows fill 128-byte lines (32x8) measured slower than 16x16: more
+// faces per tile, no gain from the wider stores.  The composite kernels are
+// bound by the length of the pixel pipeline, ~250 machine operations a
+// covered pixel and entry, most of them integer and conversion work that
+// the f32 bound does not see: x-ray, where every face of the level goes through it, is the
+// slowest launch of the file.  The resolve kernel reads three planes and
+// writes the colour (16 B a pixel) plus one attribute row and texel per
+// covered pixel, mostly L2 hits.  The sky writes 4 B a pixel and is bound
+// by its f32 operations: the ray (two divides, a square root), acos, atan2
+// where a tint or a cloud needs the azimuth, a second acos and a pow per body
 // whose glow the ray is inside, six sines and a pow per cloud layer, and
 // ~25 operations per mountain face whose box holds the pixel.  The TPU
 // gates sun, moon and mountains per chunk of rows.  Here the bodies' gate
@@ -74,8 +103,8 @@
 // version read every face's box from global memory at every pixel and
 // spent three quarters of its time there).  The sky's configuration is a
 // kernel argument (SkyParams, by value): a feature that is off costs a
-// uniform branch, and a new level costs no recompilation.  wgmma, TMA, warp-specialised
-// pipelines and fusing the kernels are later work.
+// uniform branch, and a new level costs no recompilation.  wgmma, TMA,
+// warp-specialised pipelines and fusing the kernels are later work.
 //
 // Numerics: every float expression keeps the JAX operation order and the
 // build passes -fmad=false, because the TPU never contracts a*b+c into an
@@ -97,10 +126,9 @@ constexpr int C_V3X = 0, C_V3Y = 1, C_A0 = 2, C_B0 = 3, C_A1 = 4, C_B1 = 5;
 constexpr int C_IA = 6, C_IZA = 7, C_IZB = 8, C_IZC = 9;
 constexpr int C_U0 = 10, C_VV0 = 11, C_U1 = 12, C_VV1 = 13, C_U2 = 14;
 constexpr int C_VV2 = 15, C_VCP0 = 16, C_SH = 19, C_TID = 28, C_FLAGS = 29;
-// ctrl columns (K_*)
+// a ctrl row (K_*), read as two int4: x_lo, x_hi, y_lo, y_hi (the clipped
+// half-open bbox), then tid, keyable and two unused columns
 constexpr int N_CTRL = 8;
-constexpr int K_XLO = 0, K_XHI = 1, K_YLO = 2, K_YHI = 3, K_TID = 4;
-constexpr int K_KEY = 5;
 
 // tctrl columns (T_*), composite tables
 constexpr int N_TCTRL = 8, N_TFS = 12;
@@ -114,22 +142,45 @@ constexpr int MODE_ZBUFFER = 0, MODE_PAINTERS = 1, MODE_XRAY = 2;
 
 constexpr int FLAG_DITHER = 1, FLAG_BT = 2;
 constexpr int STP_BIT = 0x8000;
-constexpr int TILE = 16;                 // 16x16 pixels, one thread each
-constexpr int THREADS = TILE * TILE;
-constexpr int BATCH = 128;               // face records staged per round
+// The tile of the frame that one block owns (ops/_cuda.py builds with the
+// TILE_H / TILE_W of ops/raster_batch.py, which the plain binning uses), and
+// the rows of one column that one thread owns in it: four for the
+// visibility kernel (64 threads a tile, so many tiles are in flight on an
+// SM), two for the composite.  scripts/torch_tile_sweep.py builds other
+// shapes to measure them.
+#ifndef RASTER_TILE_W
+#define RASTER_TILE_W 16
+#endif
+#ifndef RASTER_TILE_H
+#define RASTER_TILE_H 16
+#endif
+#ifndef RASTER_VIS_ROWS
+#define RASTER_VIS_ROWS 4
+#endif
+#ifndef RASTER_COMP_ROWS
+#define RASTER_COMP_ROWS 2
+#endif
+constexpr int TILE_W = RASTER_TILE_W, TILE_H = RASTER_TILE_H;
+constexpr int VIS_ROWS = RASTER_VIS_ROWS, COMP_ROWS = RASTER_COMP_ROWS;
+constexpr int VIS_THREADS = TILE_W * (TILE_H / VIS_ROWS);
+// registers capped so that 1280 threads fit an SM (48 a thread): left to
+// itself the compiler takes 64 for the z-buffer merge, 16 tiles an SM, and
+// the kernel is 6% slower; capped at 40 it spills and is 20% slower
+constexpr int VIS_MIN_BLOCKS = 1280 / VIS_THREADS;
+constexpr int COMP_THREADS = TILE_W * (TILE_H / COMP_ROWS);
+static_assert(TILE_H % VIS_ROWS == 0 && VIS_THREADS % 32 == 0 &&
+                  VIS_THREADS <= 1024 && TILE_H % COMP_ROWS == 0 &&
+                  COMP_THREADS % 32 == 0 && COMP_THREADS <= 1024,
+              "a block is whole warps, each thread a column of ROWS pixels");
+constexpr int BATCH = 64;                // records staged per round, >= 32
 constexpr int N_FSCAL = 16;              // attrs columns phase 1 reads
+constexpr int N_REC4 = 8;                // 16-byte loads staged per record
+constexpr int BIN_THREADS = 256;         // raster_bin: 8 warps an instance
+constexpr int BIN_CHUNK = 1024;          // tiles binned per round
+constexpr unsigned FULL = 0xffffffffu;
 constexpr float COVER_EPS = -0.0001f;
-constexpr int TBATCH = 32;               // composite entries per round
 constexpr int N_TREC = N_FSCAL + N_TFS;  // floats staged per entry
 constexpr float INV255 = 1.0f / 255.0f;  // == f32(1/255), the JAX constant
-
-struct FaceCtl {
-  int x_lo, x_hi, y_lo, y_hi, tid, keyable, fid, pad;
-};
-
-struct TransCtl {
-  int x_lo, x_hi, y_lo, y_hi, tid, blend, ea, flags;
-};
 
 __device__ __forceinline__ float wrap01(float x) {
   float r = x - truncf(x);
@@ -138,15 +189,17 @@ __device__ __forceinline__ float wrap01(float x) {
 }
 
 // Flat atlas index of the texel at (u, v) of texture `tid` >= 0.
+__device__ __forceinline__ int texel_at(int off, int tw, int th, float u,
+                                        float v) {
+  const int tx = min((int)truncf(wrap01(u) * (float)tw), tw - 1);
+  const int ty = min((int)truncf(wrap01(1.0f - v) * (float)th), th - 1);
+  return off + ty * tw + tx;
+}
 __device__ __forceinline__ int texel_index(const int* tex_off,
                                            const int* tex_w,
                                            const int* tex_h, int tid,
                                            float u, float v) {
-  const int tw = tex_w[tid];
-  const int th = tex_h[tid];
-  const int tx = min((int)truncf(wrap01(u) * (float)tw), tw - 1);
-  const int ty = min((int)truncf(wrap01(1.0f - v) * (float)th), th - 1);
-  return tex_off[tid] + ty * tw + tx;
+  return texel_at(tex_off[tid], tex_w[tid], tex_h[tid], u, v);
 }
 
 __device__ __forceinline__ float interp3(float bx, float by, float bz,
@@ -156,8 +209,8 @@ __device__ __forceinline__ float interp3(float bx, float by, float bz,
 
 // Rust `f32 as u8`: truncate, saturate, NaN -> 0.
 __device__ __forceinline__ int u8_trunc_sat(float x) {
-  if (isnan(x)) return 0;
-  return (int)fminf(fmaxf(truncf(x), 0.0f), 255.0f);
+  // cvt.rzi.s32.f32 truncates, saturates and turns NaN into 0
+  return min(max(__float2int_rz(x), 0), 255);
 }
 
 // jnp.minimum / jnp.maximum against a constant: NaN propagates.
@@ -181,8 +234,9 @@ __device__ __forceinline__ int dither_offset(int xi, int yi) {
 
 // The PS1 pixel pipeline of one textured-or-flat pixel (phase 2's and
 // phase 3's shared body): vertex-colour modulate, shade, dither/quantize.
-// Writes the three RGB555 channels to q5.
-__device__ __forceinline__ void pixel_q5(int c15, const int vcp[3],
+// `vc`: the three corners' vertex colours, corner-major (r, g, b) x3, as
+// floats.  Writes the three RGB555 channels to q5.
+__device__ __forceinline__ void pixel_q5(int c15, const float* vc,
                                          const float* sh, int shading,
                                          bool ndith, int dither, float bcx,
                                          float bcy, float bcz, int q5[3]) {
@@ -190,10 +244,8 @@ __device__ __forceinline__ void pixel_q5(int c15, const int vcp[3],
                        expand_5_to_8((c15 >> 5) & 0x1F),
                        expand_5_to_8(c15 & 0x1F)};
   for (int c = 0; c < 3; ++c) {
-    const int sh8 = 8 * c;
-    const int v8 = u8_trunc_sat(interp3(
-        bcx, bcy, bcz, (float)((vcp[0] >> sh8) & 255),
-        (float)((vcp[1] >> sh8) & 255), (float)((vcp[2] >> sh8) & 255)));
+    const int v8 =
+        u8_trunc_sat(interp3(bcx, bcy, bcz, vc[c], vc[3 + c], vc[6 + c]));
     const int mod8 = min((tex8[c] * v8) >> 7, 255);
     float s;
     if (shading == 0) {
@@ -207,6 +259,13 @@ __device__ __forceinline__ void pixel_q5(int c15, const int vcp[3],
     const int shaded = u8_trunc_sat(nan_min((float)mod8 * sc, 255.0f));
     q5[c] = ndith ? min(max((shaded + dither) >> 3, 0), 31) : shaded >> 3;
   }
+}
+
+// The packed vertex colours of three corners as nine floats, corner-major.
+__device__ __forceinline__ void unpack_vc(const int vcp[3], float* vc) {
+  for (int k = 0; k < 3; ++k)
+    for (int c = 0; c < 3; ++c)
+      vc[3 * k + c] = (float)((vcp[k] >> (8 * c)) & 255);
 }
 
 // blend_rgb555 (render.rs:1093-1145) on 8-bit operands, as v5 << 3
@@ -466,99 +525,272 @@ struct SkyBackground {
   SkyParams params;
 };
 
+// ---- binning: which entries of an ordered list touch which tile ----
+//
+// One block an instance.  A warp owns one 32-entry word of the list at a
+// time: each lane reads its entry's clipped bbox once (through `order`, or
+// through the composite table's face id) and turns it into the range of
+// tile columns and rows it reaches; the warp then walks the tiles, one
+// ballot a tile, so the overlap of an entry with a tile is tested once, by
+// one thread, and bit b of word w is list position 32 w + b: draw order.
+// A lane keeps the ballot of every 32nd tile and the warp stores 32 words
+// at a time.  Tiles with any bit are appended to the work list (one
+// atomic add a block and round).
+template <bool COMPOSITE>
+__global__ void __launch_bounds__(BIN_THREADS)
+bin_kernel(const int* __restrict__ list, const int* __restrict__ count,
+           const int* __restrict__ ctrl, int* __restrict__ bins,
+           int* __restrict__ work, int* __restrict__ work_len, int list_len,
+           int n_faces, int n_words, int height, int width, int tiles_x,
+           int n_tiles) {
+  __shared__ int s_any[BIN_CHUNK];
+  const int inst = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int* ctrl_i = ctrl + (size_t)inst * n_faces * N_CTRL;
+  int* bins_i = bins + (size_t)inst * n_tiles * n_words;
+
+  for (int chunk0 = 0; chunk0 < n_tiles; chunk0 += BIN_CHUNK) {
+    const int nt = min(BIN_CHUNK, n_tiles - chunk0);
+    for (int j = threadIdx.x; j < nt; j += BIN_THREADS) s_any[j] = 0;
+    __syncthreads();
+    for (int w = warp; w < n_words; w += BIN_THREADS / 32) {
+      const int e = 32 * w + lane;
+      bool live = false;
+      int fid = 0;
+      if (e < list_len) {
+        if (COMPOSITE) {
+          const int* tc = list + ((size_t)inst * list_len + e) * N_TCTRL;
+          live = tc[T_VALID] != 0 && tc[T_EA] != 0;
+          fid = tc[T_FID];
+        } else {
+          live = e < count[inst];
+          fid = list[(size_t)inst * list_len + e];
+        }
+      }
+      // the tile columns tx_lo..tx_hi and rows ty_lo..ty_hi that hold a
+      // pixel of the bbox (half-open, clipped to the frame)
+      int tx_lo = 0, tx_hi = -1, ty_lo = 0, ty_hi = -1;
+      if (live) {
+        const int4 box =
+            *reinterpret_cast<const int4*>(ctrl_i + (size_t)fid * N_CTRL);
+        const int x_lo = max(box.x, 0), x_hi = min(box.y, width);
+        const int y_lo = max(box.z, 0), y_hi = min(box.w, height);
+        live = x_hi > x_lo && y_hi > y_lo;
+        if (live) {
+          tx_lo = x_lo / TILE_W;
+          tx_hi = (x_hi - 1) / TILE_W;
+          ty_lo = y_lo / TILE_H;
+          ty_hi = (y_hi - 1) / TILE_H;
+        }
+      }
+      if (__ballot_sync(FULL, live) == 0u) {   // a word past the live part
+        for (int t = lane; t < nt; t += 32)
+          bins_i[(size_t)(chunk0 + t) * n_words + w] = 0;
+        continue;
+      }
+      int ty = chunk0 / tiles_x, tx = chunk0 - ty * tiles_x;
+      unsigned keep = 0u;
+      for (int t = 0; t < nt; ++t) {
+        const bool hit = tx >= tx_lo && tx <= tx_hi && ty >= ty_lo &&
+                         ty <= ty_hi;
+        const unsigned m = __ballot_sync(FULL, hit);
+        if (lane == (t & 31)) keep = m;
+        if (m != 0u && lane == 0) s_any[t] = 1;
+        if ((t & 31) == 31 || t == nt - 1) {
+          const int tt = (t & ~31) + lane;
+          if (tt <= t) bins_i[(size_t)(chunk0 + tt) * n_words + w] = (int)keep;
+        }
+        if (++tx == tiles_x) {
+          tx = 0;
+          ++ty;
+        }
+      }
+    }
+    __syncthreads();
+    if (work != nullptr && warp == 0) {
+      int total = 0;
+      for (int base = 0; base < nt; base += 32) {
+        const bool any = base + lane < nt && s_any[base + lane] != 0;
+        total += __popc(__ballot_sync(FULL, any));
+      }
+      int at = 0;
+      if (lane == 0 && total > 0) at = atomicAdd(work_len, total);
+      at = __shfl_sync(FULL, at, 0);
+      for (int base = 0; base < nt; base += 32) {
+        const bool any = base + lane < nt && s_any[base + lane] != 0;
+        const unsigned m = __ballot_sync(FULL, any);
+        if (any)
+          work[at + __popc(m & ((1u << lane) - 1u))] =
+              inst * n_tiles + chunk0 + base + lane;
+        at += __popc(m);
+      }
+    }
+    __syncthreads();   // s_any is cleared again
+  }
+}
+
+// The next entries of a tile's list, for both consumers.  EVERY thread of
+// the block calls this (it synchronizes).  Warp 0 reads up to 32 of the
+// tile's mask words from `word0` on (one coalesced read), takes whole
+// words while their set bits fit into BATCH, and writes the bits' list
+// positions, in order, to s_pos.  Returns how many (block-uniform) and
+// moves `word0` past the words taken.
+__device__ __forceinline__ int next_batch(const int* __restrict__ words,
+                                          int n_words, int& word0,
+                                          int* s_pos, int* s_hdr,
+                                          int t_lin) {
+  __syncthreads();   // the previous batch is no longer read
+  if (t_lin < 32) {
+    const int w = word0 + t_lin;
+    unsigned m = w < n_words ? (unsigned)words[w] : 0u;
+    const int cnt = __popc(m);
+    int incl = cnt;
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, d);
+      if (t_lin >= d) incl += v;
+    }
+    // the running sum never falls, so the words taken are a prefix; the
+    // first always fits (BATCH >= 32)
+    const bool take = w < n_words && incl <= BATCH;
+    const int n_take = __popc(__ballot_sync(FULL, take));
+    if (take) {
+      int at = incl - cnt;
+      while (m != 0u) {
+        s_pos[at++] = 32 * w + (__ffs(m) - 1);
+        m &= m - 1u;
+      }
+    }
+    const int n = __shfl_sync(FULL, incl, max(n_take - 1, 0));
+    if (t_lin == 0) {
+      s_hdr[0] = n_take > 0 ? n : 0;
+      s_hdr[1] = word0 + n_take;
+    }
+  }
+  __syncthreads();
+  word0 = s_hdr[1];
+  return s_hdr[0];
+}
+
+// Phase 1.  Grid: (tiles_x, tiles_y, instances); `bins` from bin_kernel
+// over (order, count).
 template <bool PAINTERS>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(VIS_THREADS, VIS_MIN_BLOCKS)
 visibility_kernel(const int* __restrict__ order,
-                  const int* __restrict__ count,
                   const int* __restrict__ ctrl,
                   const float* __restrict__ attrs,
                   const int* __restrict__ tex_data,
                   const int* __restrict__ tex_off,
                   const int* __restrict__ tex_w,
                   const int* __restrict__ tex_h,
+                  const int* __restrict__ bins,
                   float* __restrict__ depth_out,
                   int* __restrict__ winner_out,
                   float* __restrict__ bcx_out,
                   float* __restrict__ bcy_out,
-                  int n_faces, int height, int width) {
-  __shared__ float s_f[BATCH][N_FSCAL];
-  __shared__ FaceCtl s_c[BATCH];
+                  int n_faces, int n_words, int height, int width) {
+  // a record: attrs columns 0..15, then the ctrl row with the face id in
+  // place of its first unused column
+  __shared__ float4 s_f[BATCH][N_FSCAL / 4];
+  __shared__ int4 s_c[BATCH][2];
+  __shared__ int s_pos[BATCH];
+  __shared__ int s_hdr[2];
 
   const int inst = blockIdx.z;
-  const int tile_x0 = blockIdx.x * TILE;
-  const int tile_y0 = blockIdx.y * TILE;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int t_lin = ty * TILE + tx;
-  const int xi = tile_x0 + tx;
-  const int yi = tile_y0 + ty;
+  const int t_lin = threadIdx.y * TILE_W + threadIdx.x;
+  const int xi = blockIdx.x * TILE_W + threadIdx.x;
+  const int y_first = blockIdx.y * TILE_H + threadIdx.y * VIS_ROWS;
   const float px = (float)xi;
-  const float py = (float)yi;
 
-  const int n_kept = count[inst];
   const int* order_i = order + (size_t)inst * n_faces;
   const int* ctrl_i = ctrl + (size_t)inst * n_faces * N_CTRL;
   const float* attrs_i = attrs + (size_t)inst * n_faces * N_COLS;
+  const int* words =
+      bins + (((size_t)inst * gridDim.y + blockIdx.y) * gridDim.x +
+              blockIdx.x) * n_words;
 
-  float depth = 0.0f, best_bcx = 0.0f, best_bcy = 0.0f;
-  int winner = -1;
+  float depth[VIS_ROWS], best_bcx[VIS_ROWS], best_bcy[VIS_ROWS];
+  int winner[VIS_ROWS];
+#pragma unroll
+  for (int k = 0; k < VIS_ROWS; ++k) {
+    depth[k] = best_bcx[k] = best_bcy[k] = 0.0f;
+    winner[k] = -1;
+  }
 
-  for (int base = 0; base < n_kept; base += BATCH) {
-    const int nb = min(BATCH, n_kept - base);
-    __syncthreads();   // the previous batch is no longer read
-    for (int j = t_lin; j < nb * N_FSCAL; j += THREADS) {
-      const int f = j / N_FSCAL, c = j % N_FSCAL;
-      s_f[f][c] = attrs_i[(size_t)order_i[base + f] * N_COLS + c];
-    }
-    for (int f = t_lin; f < nb; f += THREADS) {
-      const int fo = order_i[base + f];
-      const int* k = ctrl_i + (size_t)fo * N_CTRL;
-      s_c[f] = FaceCtl{k[K_XLO], k[K_XHI], k[K_YLO], k[K_YHI], k[K_TID],
-                       k[K_KEY], fo, 0};
+  int word0 = 0;
+  while (word0 < n_words) {
+    const int n = next_batch(words, n_words, word0, s_pos, s_hdr, t_lin);
+    for (int j = t_lin; j < n * N_REC4; j += VIS_THREADS) {
+      const int f = j / N_REC4, part = j % N_REC4;
+      if (part >= 6) continue;
+      const int fo = order_i[s_pos[f]];
+      if (part < 4) {
+        s_f[f][part] = reinterpret_cast<const float4*>(
+            attrs_i + (size_t)fo * N_COLS)[part];
+      } else {
+        int4 v = reinterpret_cast<const int4*>(
+            ctrl_i + (size_t)fo * N_CTRL)[part - 4];
+        if (part == 5) v.z = fo;
+        s_c[f][part - 4] = v;
+      }
     }
     __syncthreads();
 
-    for (int f = 0; f < nb; ++f) {
-      const FaceCtl c = s_c[f];
-      // block-uniform skip: the face's bbox misses this tile
-      if (c.x_hi <= tile_x0 || c.x_lo >= tile_x0 + TILE ||
-          c.y_hi <= tile_y0 || c.y_lo >= tile_y0 + TILE)
+    for (int f = 0; f < n; ++f) {
+      const int4 box = s_c[f][0];   // x_lo, x_hi, y_lo, y_hi
+      // coverage is defined inside the clipped bbox; a warp none of whose
+      // pixels lies in it skips the face
+      if (xi < box.x || xi >= box.y || y_first >= box.w ||
+          y_first + VIS_ROWS <= box.z)
         continue;
-      const float* a = s_f[f];
-      const float dx = px - a[C_V3X];
-      const float dy = py - a[C_V3Y];
-      const float w0 = a[C_A0] * dx + a[C_B0] * dy;
-      const float w1 = a[C_A1] * dx + a[C_B1] * dy;
-      const float bcx = w0 * a[C_IA];
-      const float bcy = w1 * a[C_IA];
-      const float bcz = (1.0f - bcx) - bcy;
-      bool cov = bcx >= COVER_EPS && bcy >= COVER_EPS && bcz >= COVER_EPS &&
-                 xi >= c.x_lo && xi < c.x_hi && yi >= c.y_lo && yi < c.y_hi;
-      if (cov && c.keyable) {
-        // keyed faces: black texels drop out of coverage before the merge
-        const float u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
-        const float v = interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1],
-                                a[C_VV2]);
-        const int texel =
-            tex_data[texel_index(tex_off, tex_w, tex_h, c.tid, u, v)];
-        cov = (texel & 0x7FFF) != 0;
-      }
-      const float izi = (bcx * a[C_IZA] + bcy * a[C_IZB]) + bcz * a[C_IZC];
-      // painter's: the last covering face wins, whatever its depth
-      if (cov && (PAINTERS || izi > depth)) {
-        depth = izi;
-        winner = c.fid;
-        best_bcx = bcx;
-        best_bcy = bcy;
+      const int4 meta = s_c[f][1];  // tid, keyable, face id
+      const float4 e0 = s_f[f][0];  // v3x, v3y, a0, b0
+      const float4 e1 = s_f[f][1];  // a1, b1, ia, iza
+      const float4 e2 = s_f[f][2];  // izb, izc, u0, vv0
+      const float dx = px - e0.x;
+      const float w0x = e0.z * dx, w1x = e1.x * dx;
+#pragma unroll
+      for (int k = 0; k < VIS_ROWS; ++k) {
+        const int yi = y_first + k;
+        if (VIS_ROWS > 1 && (yi < box.z || yi >= box.w)) continue;
+        const float dy = (float)yi - e0.y;
+        const float w0 = w0x + e0.w * dy;
+        const float w1 = w1x + e1.y * dy;
+        const float bcx = w0 * e1.z;
+        const float bcy = w1 * e1.z;
+        const float bcz = (1.0f - bcx) - bcy;
+        bool cov = bcx >= COVER_EPS && bcy >= COVER_EPS && bcz >= COVER_EPS;
+        if (cov && meta.y) {
+          // keyed faces: black texels drop out of coverage before the merge
+          const float4 e3 = s_f[f][3];  // u1, vv1, u2, vv2
+          const float u = interp3(bcx, bcy, bcz, e2.z, e3.x, e3.z);
+          const float v = interp3(bcx, bcy, bcz, e2.w, e3.y, e3.w);
+          const int texel =
+              tex_data[texel_index(tex_off, tex_w, tex_h, meta.x, u, v)];
+          cov = (texel & 0x7FFF) != 0;
+        }
+        const float izi = (bcx * e1.w + bcy * e2.x) + bcz * e2.y;
+        // painter's: the last covering face wins, whatever its depth
+        if (cov && (PAINTERS || izi > depth[k])) {
+          depth[k] = izi;
+          winner[k] = meta.z;
+          best_bcx[k] = bcx;
+          best_bcy[k] = bcy;
+        }
       }
     }
   }
 
-  if (xi < width && yi < height) {
-    const size_t o = ((size_t)inst * height + yi) * width + xi;
-    depth_out[o] = PAINTERS ? 0.0f : depth;   // painter's never writes depth
-    winner_out[o] = winner;
-    bcx_out[o] = best_bcx;
-    bcy_out[o] = best_bcy;
+  if (xi < width) {
+#pragma unroll
+    for (int k = 0; k < VIS_ROWS; ++k) {
+      const int yi = y_first + k;
+      if (yi >= height) continue;
+      const size_t o = ((size_t)inst * height + yi) * width + xi;
+      depth_out[o] = PAINTERS ? 0.0f : depth[k];  // painter's writes none
+      winner_out[o] = winner[k];
+      bcx_out[o] = best_bcx[k];
+      bcy_out[o] = best_bcy[k];
+    }
   }
 }
 
@@ -609,8 +841,10 @@ __device__ __forceinline__ bool resolve_pixel(
   if (c15 == 0 && !bt) c15 = 0x8000;  // drawable black
   const int vcp[3] = {(int)a[C_VCP0], (int)a[C_VCP0 + 1],
                       (int)a[C_VCP0 + 2]};
+  float vc[9];
+  unpack_vc(vcp, vc);
   int q5[3];
-  pixel_q5(c15, vcp, a + C_SH, shading, ndith, dither_offset(xi, yi), bcx,
+  pixel_q5(c15, vc, a + C_SH, shading, ndith, dither_offset(xi, yi), bcx,
            bcy, bcz, q5);
   word = (255 << 24) | expand_5_to_8(q5[0]) | (expand_5_to_8(q5[1]) << 8) |
          (expand_5_to_8(q5[2]) << 16);
@@ -665,8 +899,10 @@ resolve_kernel(const int* __restrict__ winner,
 
 // Phase 3.  ZACTIVE: z-test against the opaque depth (z-buffer mode, not
 // x-ray).  XRAY: the 50% average in place of blend modes and editor alpha.
+// A fixed grid strides over the work list of bin_kernel: the (instance,
+// tile) pairs that a live entry touches; `bins` is over the composite list.
 template <bool ZACTIVE, bool XRAY>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(COMP_THREADS)
 composite_kernel(const int* __restrict__ tctrl,
                  const float* __restrict__ tfscal,
                  const int* __restrict__ ctrl,
@@ -675,168 +911,227 @@ composite_kernel(const int* __restrict__ tctrl,
                  const int* __restrict__ tex_off,
                  const int* __restrict__ tex_w,
                  const int* __restrict__ tex_h,
+                 const int* __restrict__ bins,
+                 const int* __restrict__ work,
+                 int* __restrict__ work_state,
                  const float* __restrict__ depth_in,
                  int* __restrict__ color,
-                 int n_tr, int n_faces, int height, int width,
-                 int shading) {
-  __shared__ float s_f[TBATCH][N_TREC];
-  __shared__ TransCtl s_c[TBATCH];
-  __shared__ int s_fid[TBATCH];
-  __shared__ int s_ent[TBATCH];
-  __shared__ int s_live;
+                 int n_tr, int n_faces, int n_words, int tiles_x,
+                 int n_tiles, int height, int width, int shading) {
+  // a record: attrs columns 0..15 and the entry's tfscal row, then the
+  // face's bbox and the entry's tid, blend, editor alpha, flags
+  __shared__ float4 s_f[BATCH][N_TREC / 4];
+  __shared__ int4 s_c[BATCH][2];
+  __shared__ int s_pos[BATCH];
+  __shared__ int s_hdr[2];
+  static_assert(N_TREC / 4 + 1 == N_REC4, "eight 16-byte loads a record");
+  __shared__ float s_vc[BATCH][9];   // vertex colours, unpacked
+  __shared__ int s_t[BATCH][3];      // the texture's offset, width, height
+  __shared__ int s_item;
 
-  const int inst = blockIdx.z;
-  const int tile_x0 = blockIdx.x * TILE;
-  const int tile_y0 = blockIdx.y * TILE;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int t_lin = ty * TILE + tx;
-  const int xi = tile_x0 + tx;
-  const int yi = tile_y0 + ty;
-  const float px = (float)xi;
-  const float py = (float)yi;
-  const bool inside = xi < width && yi < height;
-  const size_t o = ((size_t)inst * height + yi) * width + xi;
+  const int t_lin = threadIdx.y * TILE_W + threadIdx.x;
+  const int n_work = work_state[0];
 
-  const int* tctrl_i = tctrl + (size_t)inst * n_tr * N_TCTRL;
-  const float* tfscal_i = tfscal + (size_t)inst * n_tr * N_TFS;
-  const int* ctrl_i = ctrl + (size_t)inst * n_faces * N_CTRL;
-  const float* attrs_i = attrs + (size_t)inst * n_faces * N_COLS;
-
-  // the planes are read at the first batch with a live entry and the
-  // colour written back only then: a tile no entry touches moves no bytes
-  bool touched = false;
-  int word = 0;
-  float zbuf = 0.0f;
-  const int dither = dither_offset(xi, yi);
-
-  for (int base = 0; base < n_tr; base += TBATCH) {
-    const int nb = min(TBATCH, n_tr - base);
-    __syncthreads();   // the previous batch is no longer read
-    if (t_lin < 32) {
-      // warp 0: which entries can draw into this tile, compacted in order
-      bool live = false;
-      TransCtl c{};
-      int fid = 0;
-      if (t_lin < nb) {
-        const int* tc = tctrl_i + (size_t)(base + t_lin) * N_TCTRL;
-        fid = tc[T_FID];
-        const int* k = ctrl_i + (size_t)fid * N_CTRL;
-        c = TransCtl{k[K_XLO], k[K_XHI], k[K_YLO], k[K_YHI], tc[T_TID],
-                     tc[T_BLEND], tc[T_EA], tc[T_FLAGS]};
-        live = tc[T_VALID] != 0 && c.ea != 0 && c.x_hi > tile_x0 &&
-               c.x_lo < tile_x0 + TILE && c.y_hi > tile_y0 &&
-               c.y_lo < tile_y0 + TILE;
-      }
-      const unsigned mask = __ballot_sync(0xffffffffu, live);
-      if (live) {
-        const int pos = __popc(mask & ((1u << t_lin) - 1u));
-        s_c[pos] = c;
-        s_fid[pos] = fid;
-        s_ent[pos] = base + t_lin;
-      }
-      if (t_lin == 0) s_live = __popc(mask);
-    }
+  for (;;) {
+    // tiles differ in work by an order of magnitude: each block draws its
+    // next one from the cursor
     __syncthreads();
-    const int n_live = s_live;
-    if (n_live == 0) continue;   // block-uniform
-    if (!touched) {
-      touched = true;
-      if (inside) {
-        word = color[o];
-        if (ZACTIVE) zbuf = depth_in[o];
-      }
-    }
-    for (int j = t_lin; j < n_live * N_TREC; j += THREADS) {
-      const int f = j / N_TREC, col = j % N_TREC;
-      s_f[f][col] = col < N_FSCAL
-          ? attrs_i[(size_t)s_fid[f] * N_COLS + col]
-          : tfscal_i[(size_t)s_ent[f] * N_TFS + (col - N_FSCAL)];
-    }
+    if (t_lin == 0) s_item = atomicAdd(work_state + 1, 1);
     __syncthreads();
+    const int item = s_item;
+    if (item >= n_work) break;
+    const int wi = work[item];
+    const int inst = wi / n_tiles;
+    const int tile = wi - inst * n_tiles;
+    const int tile_y = tile / tiles_x;
+    const int xi = (tile - tile_y * tiles_x) * TILE_W + threadIdx.x;
+    const int y_first = tile_y * TILE_H + threadIdx.y * COMP_ROWS;
+    const float px = (float)xi;
 
-    for (int f = 0; f < n_live; ++f) {
-      const TransCtl c = s_c[f];
-      const float* a = s_f[f];
-      const float* fs = a + N_FSCAL;   // vcp x3, shade x9
-      const float dx = px - a[C_V3X];
-      const float dy = py - a[C_V3Y];
-      const float w0 = a[C_A0] * dx + a[C_B0] * dy;
-      const float w1 = a[C_A1] * dx + a[C_B1] * dy;
-      const float bcx = w0 * a[C_IA];
-      const float bcy = w1 * a[C_IA];
-      const float bcz = (1.0f - bcx) - bcy;
-      const bool cov = bcx >= COVER_EPS && bcy >= COVER_EPS &&
-                       bcz >= COVER_EPS && xi >= c.x_lo && xi < c.x_hi &&
-                       yi >= c.y_lo && yi < c.y_hi;
-      if (!cov) continue;
-      if (ZACTIVE) {
-        const float izi =
-            (bcx * a[C_IZA] + bcy * a[C_IZB]) + bcz * a[C_IZC];
-        if (!(izi > zbuf)) continue;
+    const int* tctrl_i = tctrl + (size_t)inst * n_tr * N_TCTRL;
+    const float* tfscal_i = tfscal + (size_t)inst * n_tr * N_TFS;
+    const int* ctrl_i = ctrl + (size_t)inst * n_faces * N_CTRL;
+    const float* attrs_i = attrs + (size_t)inst * n_faces * N_COLS;
+    const int* words = bins + (size_t)wi * n_words;
+
+    // the tile's planes are in flight while its records are staged; the
+    // colour goes back only where an entry drew
+    int word[COMP_ROWS], dither[COMP_ROWS];
+    float zbuf[COMP_ROWS];
+    bool drew[COMP_ROWS];
+#pragma unroll
+    for (int k = 0; k < COMP_ROWS; ++k) {
+      const int yi = y_first + k;
+      word[k] = 0;
+      zbuf[k] = 0.0f;
+      drew[k] = false;
+      dither[k] = dither_offset(xi, yi);
+      if (xi < width && yi < height) {
+        const size_t o = ((size_t)inst * height + yi) * width + xi;
+        word[k] = color[o];
+        if (ZACTIVE) zbuf[k] = depth_in[o];
       }
-      const float u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
-      const float v = interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2]);
-      const bool textured = c.tid >= 0;
-      const int texel = tex_data[texel_index(tex_off, tex_w, tex_h,
-                                             max(c.tid, 0), u, v)];
-      const bool bt = (c.flags & FLAG_BT) != 0;
-      int c15 = textured ? texel : 0x7FFF;
-      const bool is_black = ((c15 >> 10) & 0x1F) == 0 &&
-                            ((c15 >> 5) & 0x1F) == 0 && (c15 & 0x1F) == 0;
-      if (is_black && bt && textured) continue;   // keyed out: not drawn
-      if (c15 == 0 && !bt) c15 = 0x8000;          // drawable black
-      const int vcp[3] = {(int)fs[0], (int)fs[1], (int)fs[2]};
-      int q5[3];
-      pixel_q5(c15, vcp, fs + 3, shading, (c.flags & FLAG_DITHER) != 0,
-               dither, bcx, bcy, bcz, q5);
-      const bool semi = (c15 & STP_BIT) != 0 ||
-                        (q5[0] == 0 && q5[1] == 0 && q5[2] == 0);
-      int out = 255 << 24;
-      for (int ch = 0; ch < 3; ++ch) {
-        const int front = expand_5_to_8(q5[ch]);
-        const int back = (word >> (8 * ch)) & 255;
-        int r;
-        if (XRAY) {
-          r = (front + back) >> 1;   // operands >= 0: >> 1 is // 2
+    }
+
+    int word0 = 0;
+    while (word0 < n_words) {
+      const int n = next_batch(words, n_words, word0, s_pos, s_hdr, t_lin);
+      for (int j = t_lin; j < n * N_REC4; j += COMP_THREADS) {
+        const int f = j / N_REC4, part = j % N_REC4;
+        const int ent = s_pos[f];
+        const int* tc = tctrl_i + (size_t)ent * N_TCTRL;
+        const int fid = tc[T_FID];
+        if (part < 4) {
+          s_f[f][part] = reinterpret_cast<const float4*>(
+              attrs_i + (size_t)fid * N_COLS)[part];
+        } else if (part < 7) {
+          s_f[f][part] = reinterpret_cast<const float4*>(
+              tfscal_i + (size_t)ent * N_TFS)[part - 4];
         } else {
-          const int p = (semi && c.blend != BM_OPAQUE)
-                            ? blend5(c.blend, front, back) : front;
-          // editor-alpha lerp (render.rs:564-628): the // 255 is the
-          // f32 multiply trunc(x * f32(1/255)), as in the JAX kernel
-          r = c.ea < 255
-                  ? (int)truncf((float)(p * c.ea + back * (255 - c.ea)) *
-                                INV255)
-                  : p;
+          s_c[f][0] = *reinterpret_cast<const int4*>(
+              ctrl_i + (size_t)fid * N_CTRL);
+          s_c[f][1] = make_int4(tc[T_TID], tc[T_BLEND], tc[T_EA],
+                                tc[T_FLAGS]);
+          // what the pixel pipeline would redo at every pixel of the entry
+          const float* fs = tfscal_i + (size_t)ent * N_TFS;
+          const int vcp[3] = {(int)fs[0], (int)fs[1], (int)fs[2]};
+          unpack_vc(vcp, s_vc[f]);
+          const int tid = max(tc[T_TID], 0);
+          s_t[f][0] = tex_off[tid];
+          s_t[f][1] = tex_w[tid];
+          s_t[f][2] = tex_h[tid];
         }
-        out |= r << (8 * ch);
       }
-      word = out;
+      __syncthreads();
+
+      for (int f = 0; f < n; ++f) {
+        const int4 box = s_c[f][0];   // x_lo, x_hi, y_lo, y_hi
+        if (xi < box.x || xi >= box.y || y_first >= box.w ||
+            y_first + COMP_ROWS <= box.z)
+          continue;
+        const int4 c = s_c[f][1];     // tid, blend, editor alpha, flags
+        const int c_tid = c.x, c_blend = c.y, c_ea = c.z, c_flags = c.w;
+        const float* a = reinterpret_cast<const float*>(s_f[f]);
+        const float* fs = a + N_FSCAL;   // (vcp x3,) shade x9
+        const float dx = px - a[C_V3X];
+#pragma unroll
+        for (int k = 0; k < COMP_ROWS; ++k) {
+          const int yi = y_first + k;
+          if (COMP_ROWS > 1 && (yi < box.z || yi >= box.w)) continue;
+          const float dy = (float)yi - a[C_V3Y];
+          const float w0 = a[C_A0] * dx + a[C_B0] * dy;
+          const float w1 = a[C_A1] * dx + a[C_B1] * dy;
+          const float bcx = w0 * a[C_IA];
+          const float bcy = w1 * a[C_IA];
+          const float bcz = (1.0f - bcx) - bcy;
+          const bool cov = bcx >= COVER_EPS && bcy >= COVER_EPS &&
+                           bcz >= COVER_EPS;
+          if (!cov) continue;
+          if (ZACTIVE) {
+            const float izi =
+                (bcx * a[C_IZA] + bcy * a[C_IZB]) + bcz * a[C_IZC];
+            if (!(izi > zbuf[k])) continue;
+          }
+          const float u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
+          const float v =
+              interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2]);
+          const bool textured = c_tid >= 0;
+          const int texel =
+              tex_data[texel_at(s_t[f][0], s_t[f][1], s_t[f][2], u, v)];
+          const bool bt = (c_flags & FLAG_BT) != 0;
+          int c15 = textured ? texel : 0x7FFF;
+          const bool is_black = ((c15 >> 10) & 0x1F) == 0 &&
+                                ((c15 >> 5) & 0x1F) == 0 &&
+                                (c15 & 0x1F) == 0;
+          if (is_black && bt && textured) continue;   // keyed out: not drawn
+          if (c15 == 0 && !bt) c15 = 0x8000;          // drawable black
+          int q5[3];
+          pixel_q5(c15, s_vc[f], fs + 3, shading, (c_flags & FLAG_DITHER) != 0,
+                   dither[k], bcx, bcy, bcz, q5);
+          const bool semi = (c15 & STP_BIT) != 0 ||
+                            (q5[0] == 0 && q5[1] == 0 && q5[2] == 0);
+          int out = 255 << 24;
+          for (int ch = 0; ch < 3; ++ch) {
+            const int front = expand_5_to_8(q5[ch]);
+            const int back = (word[k] >> (8 * ch)) & 255;
+            int r;
+            if (XRAY) {
+              r = (front + back) >> 1;   // operands >= 0: >> 1 is // 2
+            } else {
+              const int p = (semi && c_blend != BM_OPAQUE)
+                                ? blend5(c_blend, front, back) : front;
+              // editor-alpha lerp (render.rs:564-628): the // 255 is the
+              // f32 multiply trunc(x * f32(1/255)), as in the JAX kernel
+              r = c_ea < 255
+                      ? (int)truncf((float)(p * c_ea + back * (255 - c_ea)) *
+                                    INV255)
+                      : p;
+            }
+            out |= r << (8 * ch);
+          }
+          word[k] = out;
+          drew[k] = true;
+        }
+      }
     }
+#pragma unroll
+    for (int k = 0; k < COMP_ROWS; ++k)
+      if (drew[k])
+        color[((size_t)inst * height + y_first + k) * width + xi] = word[k];
   }
-  if (inside && touched) color[o] = word;
 }
 
 }  // namespace
 
 extern "C" {
 
-int raster_visibility(const int* order, const int* count, const int* ctrl,
-                      const float* attrs, const int* tex_data,
-                      const int* tex_off, const int* tex_w, const int* tex_h,
+// Bins an ordered list per tile: `bins` (I, tiles_y, tiles_x,
+// ceil(list_len / 32)).  composite == 0: `list` is order (I, list_len) and
+// position p is live where p < count[i]; else `list` is tctrl
+// (I, list_len, 8), live where valid and editor alpha are not 0, and
+// `count` is not read.  `work` (I * tiles) and `work_len` (zero on entry)
+// receive the flat indices of the tiles with any bit and their number, or
+// are null.
+int raster_bin(const int* list, const int* count, const int* ctrl, int* bins,
+               int* work, int* work_len, int n_inst, int list_len,
+               int n_faces, int height, int width, int composite,
+               void* stream) {
+  const int tiles_x = (width + TILE_W - 1) / TILE_W;
+  const int n_tiles = tiles_x * ((height + TILE_H - 1) / TILE_H);
+  const int n_words = (list_len + 31) / 32;
+  if (n_inst == 0 || n_tiles == 0 || n_words == 0) return 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (composite) {
+    bin_kernel<true><<<n_inst, BIN_THREADS, 0, s>>>(
+        list, count, ctrl, bins, work, work_len, list_len, n_faces, n_words,
+        height, width, tiles_x, n_tiles);
+  } else {
+    bin_kernel<false><<<n_inst, BIN_THREADS, 0, s>>>(
+        list, count, ctrl, bins, work, work_len, list_len, n_faces, n_words,
+        height, width, tiles_x, n_tiles);
+  }
+  return (int)cudaGetLastError();
+}
+
+int raster_visibility(const int* order, const int* ctrl, const float* attrs,
+                      const int* tex_data, const int* tex_off,
+                      const int* tex_w, const int* tex_h, const int* bins,
                       float* depth, int* winner, float* bcx, float* bcy,
                       int n_inst, int n_faces, int height, int width,
                       int painters, void* stream) {
-  const dim3 block(TILE, TILE);
-  const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE,
-                  n_inst);
+  const dim3 block(TILE_W, TILE_H / VIS_ROWS);
+  const dim3 grid((width + TILE_W - 1) / TILE_W,
+                  (height + TILE_H - 1) / TILE_H, n_inst);
+  const int n_words = (n_faces + 31) / 32;
+  if (n_inst == 0 || height == 0 || width == 0) return 0;
   if (painters) {
     visibility_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        order, count, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, depth,
-        winner, bcx, bcy, n_faces, height, width);
+        order, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, depth,
+        winner, bcx, bcy, n_faces, n_words, height, width);
   } else {
     visibility_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        order, count, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, depth,
-        winner, bcx, bcy, n_faces, height, width);
+        order, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, depth,
+        winner, bcx, bcy, n_faces, n_words, height, width);
   }
   return (int)cudaGetLastError();
 }
@@ -880,36 +1175,87 @@ int raster_sky(const float* skyscal, const int* sky_faces,
   return (int)cudaGetLastError();
 }
 
+}  // extern "C"
+
+namespace {
+
+// Blocks of `kernel` that fill the card once: the fixed grid that strides
+// over a work list.
+template <typename K>
+int resident_blocks(K kernel, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        COMP_THREADS, 0);
+  *out = sms * per_sm;
+  return (int)err;
+}
+
+template <bool ZACTIVE, bool XRAY>
+int launch_composite(const int* tctrl, const float* tfscal, const int* ctrl,
+                     const float* attrs, const int* tex_data,
+                     const int* tex_off, const int* tex_w, const int* tex_h,
+                     const int* bins, const int* work, int* work_state,
+                     const float* depth, int* color, int n_inst, int n_tr,
+                     int n_faces, int height, int width, int shading,
+                     cudaStream_t s) {
+  static int resident = 0;   // per mode; the same on every card of a host
+  if (resident == 0) {
+    const int err = resident_blocks(composite_kernel<ZACTIVE, XRAY>,
+                                    &resident);
+    if (err != 0) return err;
+    if (resident == 0) return (int)cudaErrorLaunchOutOfResources;
+  }
+  const int tiles_x = (width + TILE_W - 1) / TILE_W;
+  const int n_tiles = tiles_x * ((height + TILE_H - 1) / TILE_H);
+  const long long most = (long long)n_inst * n_tiles;
+  const int grid = (int)(most < resident ? most : resident);
+  composite_kernel<ZACTIVE, XRAY>
+      <<<grid, dim3(TILE_W, TILE_H / COMP_ROWS), 0, s>>>(
+      tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, work,
+      work_state, depth, color, n_tr, n_faces, (n_tr + 31) / 32, tiles_x,
+      n_tiles, height, width, shading);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// `bins`, `work`: raster_bin's over the composite list `tctrl`;
+// `work_state`: two ints, raster_bin's `work_len` and a cursor that is zero
+// on entry and that this launch advances.
 int raster_composite(const int* tctrl, const float* tfscal, const int* ctrl,
                      const float* attrs, const int* tex_data,
                      const int* tex_off, const int* tex_w, const int* tex_h,
+                     const int* bins, const int* work, int* work_state,
                      const float* depth, int* color, int n_inst, int n_tr,
                      int n_faces, int height, int width, int shading,
                      int mode, void* stream) {
-  const dim3 block(TILE, TILE);
-  const dim3 grid((width + TILE - 1) / TILE, (height + TILE - 1) / TILE,
-                  n_inst);
+  if (n_inst == 0 || n_tr == 0 || height == 0 || width == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   switch (mode) {
     case MODE_ZBUFFER:
-      composite_kernel<true, false><<<grid, block, 0, s>>>(
-          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, depth,
-          color, n_tr, n_faces, height, width, shading);
-      break;
+      return launch_composite<true, false>(
+          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins,
+          work, work_state, depth, color, n_inst, n_tr, n_faces, height, width,
+          shading, s);
     case MODE_PAINTERS:
-      composite_kernel<false, false><<<grid, block, 0, s>>>(
-          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, depth,
-          color, n_tr, n_faces, height, width, shading);
-      break;
+      return launch_composite<false, false>(
+          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins,
+          work, work_state, depth, color, n_inst, n_tr, n_faces, height, width,
+          shading, s);
     case MODE_XRAY:
-      composite_kernel<false, true><<<grid, block, 0, s>>>(
-          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, depth,
-          color, n_tr, n_faces, height, width, shading);
-      break;
+      return launch_composite<false, true>(
+          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins,
+          work, work_state, depth, color, n_inst, n_tr, n_faces, height, width,
+          shading, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

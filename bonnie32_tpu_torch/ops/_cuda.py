@@ -1,5 +1,5 @@
 """Build, load and launch the CUDA kernels of csrc/raster.cu
-(`raster_visibility`, `raster_resolve`, `raster_composite`,
+(`raster_bin`, `raster_visibility`, `raster_resolve`, `raster_composite`,
 `raster_sky`); csrc/gather.cu is built and loaded here too and launched
 by ops/gather.py.
 
@@ -46,11 +46,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def nvcc_flags() -> tuple:
+    """NVCC_FLAGS plus the tile shape of the plain binning
+    (raster_batch.TILE_H, TILE_W), which csrc/raster.cu is built for."""
+    from . import raster_batch as rb
+    return NVCC_FLAGS + (f"-DRASTER_TILE_H={rb.TILE_H}",
+                         f"-DRASTER_TILE_W={rb.TILE_W}")
+
+
 def library_path(name: str = "raster") -> Path:
     """Where the library for source `name`'s current text and the flags
     lives."""
     digest = hashlib.sha256(SOURCES[name].read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()
+                            + " ".join(nvcc_flags()).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
@@ -67,7 +75,8 @@ def build(names=None, verbose: bool = False) -> dict:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+        cmd = [_nvcc(), *nvcc_flags(),
+               *(["-Xptxas", "-v"] if verbose else []),
                "-o", str(tmp), str(SOURCES[name])]
         procs[name] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -164,14 +173,16 @@ def load(name: str = "raster"):
             lib = ctypes.CDLL(str(build([name])[name]))
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             if name == "raster":
+                lib.raster_bin.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
                 lib.raster_visibility.argtypes = ([ptr] * 12 + [i32] * 5
                                                   + [ptr])
                 lib.raster_resolve.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
-                lib.raster_composite.argtypes = ([ptr] * 10 + [i32] * 7
+                lib.raster_composite.argtypes = ([ptr] * 13 + [i32] * 7
                                                  + [ptr])
                 lib.raster_sky.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
-                for fn in (lib.raster_visibility, lib.raster_resolve,
-                           lib.raster_composite, lib.raster_sky):
+                for fn in (lib.raster_bin, lib.raster_visibility,
+                           lib.raster_resolve, lib.raster_composite,
+                           lib.raster_sky):
                     fn.restype = i32
             else:
                 lib.select_gather.argtypes = [ptr] * 3 + [
@@ -181,7 +192,7 @@ def load(name: str = "raster"):
     return _libs[name]
 
 
-def _check(name, t, dtype, shape, device):
+def _check(name, t, dtype, shape, device, align=4):
     if not t.is_cuda or t.device != device:
         raise ValueError(f"{name}: expected a tensor on {device}, "
                          f"got {t.device}")
@@ -192,6 +203,8 @@ def _check(name, t, dtype, shape, device):
                          f"got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected {align}-byte aligned storage")
     return t.data_ptr()
 
 
@@ -209,30 +222,87 @@ def _raise_on(err: int, name: str):
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
+def raster_bin(ctrl, height: int, width: int, order=None, count=None,
+               tctrl=None, want_work: bool = False):
+    """Launch `raster_bin`: which entries of each instance's ordered list
+    touch which tile, as raster_batch.tile_bins_ref computes it.  The list
+    is the visibility kernel's (`order` (I, L) i32 with `count` (I,) i32:
+    position p is live where p < count[i]) or the composite's (`tctrl`
+    (I, L, 8) i32: live where valid and editor alpha are not 0); each
+    entry's clipped bbox is its face's row of `ctrl` (I, T, 8) i32.
+    Returns (bins (I, tiles_y, tiles_x, ceil(L / 32)) i32, work, work_len):
+    with `want_work`, `work` (I * tiles,) i32 holds, in its first
+    `work_len[0]` places and in no fixed order, the flat (instance, tile)
+    indices with any bit set, and `work_len[1]` is the zeroed cursor that
+    `raster_composite` draws tiles with, so one work list serves one
+    composite launch; both stay on the device (else None)."""
+    from . import raster_batch as rb
+    lib = load()
+    dev = ctrl.device
+    n, t = ctrl.shape[:2]
+    if ((order is None) == (tctrl is None)
+            or (order is None) != (count is None)):
+        raise ValueError("raster_bin: give order and count, or tctrl")
+    composite = tctrl is not None
+    length = (tctrl if composite else order).shape[1]
+    ctrl_p = _check("ctrl", ctrl, torch.int32, (n, t, 8), dev, align=16)
+    if composite:
+        list_p = _check("tctrl", tctrl, torch.int32, (n, length, 8), dev)
+        count_p = None
+    else:
+        list_p = _check("order", order, torch.int32, (n, length), dev)
+        count_p = _check("count", count, torch.int32, (n,), dev)
+    tiles_y, tiles_x = rb.tile_grid(height, width)
+    if n * tiles_y * tiles_x >= 2 ** 31:
+        raise ValueError(f"{n} instances of {tiles_y}x{tiles_x} tiles "
+                         f"exceed the work list's 32-bit index")
+    bins = torch.empty((n, tiles_y, tiles_x, (length + 31) // 32),
+                       dtype=torch.int32, device=dev)
+    work = work_len = None
+    if want_work:
+        work = torch.empty(n * tiles_y * tiles_x, dtype=torch.int32,
+                           device=dev)
+        work_len = torch.zeros(2, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = lib.raster_bin(list_p, count_p, ctrl_p, bins.data_ptr(),
+                         work.data_ptr() if want_work else None,
+                         work_len.data_ptr() if want_work else None,
+                         n, length, t, height, width, int(composite), stream)
+    _raise_on(err, "raster_bin")
+    raster_bin.launches += 1
+    return bins, work, work_len
+
+
+raster_bin.launches = 0
+
+
 def raster_visibility(prep, atlas, height: int, width: int,
                       painters: bool = False):
-    """Launch `raster_visibility` (phase 1): returns (depth f32, winner
-    i32, bcx f32, bcy f32), each (I, H, W) on the prep's device.
-    `painters`: the painter's merge (last covering face wins) and a
-    cleared depth plane."""
+    """Launch `raster_bin` over the kept faces, then `raster_visibility`
+    (phase 1): returns (depth f32, winner i32, bcx f32, bcy f32), each
+    (I, H, W) on the prep's device.  `painters`: the painter's merge (last
+    covering face wins) and a cleared depth plane."""
     lib = load()
     dev = prep.attrs.device
     n, t = prep.order.shape
     if n > 65535:
         raise ValueError(f"{n} instances exceed the grid's z limit 65535")
     args = [_check("order", prep.order, torch.int32, (n, t), dev),
-            _check("count", prep.count, torch.int32, (n,), dev),
-            _check("ctrl", prep.ctrl, torch.int32, (n, t, 8), dev),
-            _check("attrs", prep.attrs, torch.float32, (n, t, 32), dev),
+            _check("ctrl", prep.ctrl, torch.int32, (n, t, 8), dev, align=16),
+            _check("attrs", prep.attrs, torch.float32, (n, t, 32), dev,
+                   align=16),
             *_check_atlas(atlas, dev)]
+    bins, _, _ = raster_bin(prep.ctrl, height, width, order=prep.order,
+                            count=prep.count)
     depth = torch.empty((n, height, width), dtype=torch.float32, device=dev)
     winner = torch.empty((n, height, width), dtype=torch.int32, device=dev)
     bcx = torch.empty_like(depth)
     bcy = torch.empty_like(depth)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.raster_visibility(*args, depth.data_ptr(), winner.data_ptr(),
-                                bcx.data_ptr(), bcy.data_ptr(), n, t,
-                                height, width, int(painters), stream)
+    err = lib.raster_visibility(*args, bins.data_ptr(), depth.data_ptr(),
+                                winner.data_ptr(), bcx.data_ptr(),
+                                bcy.data_ptr(), n, t, height, width,
+                                int(painters), stream)
     _raise_on(err, "raster_visibility")
     raster_visibility.launches += 1
     return depth, winner, bcx, bcy
@@ -314,8 +384,9 @@ raster_sky.launches = 0
 
 
 def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int):
-    """Launch `raster_composite` (phase 3): composites the entries of the
-    TransPrep `tr` in order onto `color` (I, H, W) i32, IN PLACE, and
+    """Launch `raster_bin` over the entries of the TransPrep `tr`, then
+    `raster_composite` (phase 3), which composites them in order onto
+    `color` (I, H, W) i32, IN PLACE, in the tiles a live entry touches, and
     returns it; face rows come from `prep` (a BatchPrep or FaceTables).
     `mode` is a raster_batch.COMPOSITE_* value: z-buffer mode z-tests
     against `depth` (I, H, W) f32, which is never written; x-ray takes the
@@ -330,15 +401,20 @@ def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int):
     if mode not in (0, 1, 2):
         raise ValueError(f"unknown composite mode {mode}")
     args = [_check("tctrl", tr.tctrl, torch.int32, (n, nt, 8), dev),
-            _check("tfscal", tr.tfscal, torch.float32, (n, nt, 12), dev),
-            _check("ctrl", prep.ctrl, torch.int32, (n, t, 8), dev),
-            _check("attrs", prep.attrs, torch.float32, (n, t, 32), dev),
-            *_check_atlas(atlas, dev),
-            _check("depth", depth, torch.float32, (n, height, width), dev),
-            _check("color", color, torch.int32, (n, height, width), dev)]
+            _check("tfscal", tr.tfscal, torch.float32, (n, nt, 12), dev,
+                   align=16),
+            _check("ctrl", prep.ctrl, torch.int32, (n, t, 8), dev, align=16),
+            _check("attrs", prep.attrs, torch.float32, (n, t, 32), dev,
+                   align=16),
+            *_check_atlas(atlas, dev)]
+    planes = [_check("depth", depth, torch.float32, (n, height, width), dev),
+              _check("color", color, torch.int32, (n, height, width), dev)]
+    bins, work, work_len = raster_bin(prep.ctrl, height, width,
+                                      tctrl=tr.tctrl, want_work=True)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.raster_composite(*args, n, nt, t, height, width, int(shading),
-                               int(mode), stream)
+    err = lib.raster_composite(*args, bins.data_ptr(), work.data_ptr(),
+                               work_len.data_ptr(), *planes, n, nt, t, height,
+                               width, int(shading), int(mode), stream)
     _raise_on(err, "raster_composite")
     raster_composite.launches += 1
     return color

@@ -32,6 +32,17 @@ same f32 expressions in the same order (no FMA contraction on either
 side), so the two agree bit for bit.  The TPU layout machinery
 (lane-group layout, SMEM segment plans, draw-ordered attr gathers) is not
 ported: planes are (I, H, W) throughout.
+
+The TPU kernel walks each face over the row blocks of its own bbox only.
+The CUDA kernels get the same economy from the other side: the frame is
+cut into TILE_H x TILE_W tiles, the `raster_bin` kernel marks once per
+launch which entries of the ordered list (the kept faces, or the
+composite's entries) touch which tile, and a tile's block of the
+visibility or composite kernel stages and walks only those, in list order.
+`tile_bins_ref` is that kernel's plain version; the twins of the consumers
+need no bins (an entry whose bit is clear for a tile covers no pixel of
+it, tests/test_torch_bins.py), so they walk every entry over the whole
+frame.
 """
 
 from typing import NamedTuple
@@ -70,6 +81,10 @@ FLAG_BT = 2
 STP_BIT = 0x8000
 
 COVER_EPS = -0.0001
+
+# The tile of the frame one block of the CUDA kernels owns (rows, columns);
+# ops/_cuda.py builds csrc/raster.cu for this shape
+TILE_H, TILE_W = 16, 16
 
 
 class BatchPrep(NamedTuple):
@@ -215,6 +230,71 @@ def _texel_index(atlas, tid, u, v):
     ty = torch.minimum(torch.trunc(_wrap01(1.0 - v) * th.to(torch.float32))
                        .to(torch.int32), th - 1)
     return atlas.offset[tid] + ty * tw + tx
+
+
+def tile_grid(height: int, width: int):
+    """(tiles_y, tiles_x) of a frame; the last row and column may be
+    ragged."""
+    return -(-height // TILE_H), -(-width // TILE_W)
+
+
+def bin_list(order=None, count=None, tctrl=None):
+    """The ordered list a kernel walks, as (fids (I, L) i64, live (I, L)
+    bool): the visibility kernel's (position p of `order`, live where
+    p < count[i]) or the composite's (entry e of `tctrl`, live where its
+    valid flag and its editor alpha are not 0)."""
+    if ((order is None) == (tctrl is None)
+            or (order is None) != (count is None)):
+        raise ValueError("give order and count, or tctrl")
+    if tctrl is not None:
+        return (tctrl[..., T_FID].long(),
+                (tctrl[..., T_VALID] != 0) & (tctrl[..., T_EA] != 0))
+    pos = torch.arange(order.shape[1], device=order.device)
+    return order.long(), pos[None] < count[:, None]
+
+
+def tile_bins_ref(ctrl, height: int, width: int, order=None, count=None,
+                  tctrl=None):
+    """Plain torch twin of the `raster_bin` kernel (the TPU kernel clips
+    each face's bbox to the row blocks it reaches; here the frame is cut
+    into TILE_H x TILE_W tiles and the test is made once per entry and
+    tile).  For the list of `bin_list`, with each entry's clipped half-open
+    bbox from its face's row of `ctrl` (I, T, N_CTRL): bins (I, tiles_y,
+    tiles_x, ceil(L / 32)) i32, bit b of word w set where list position
+    32 w + b is live and its bbox holds a pixel of the frame inside the
+    tile.  Bit order is list order, i.e. draw order."""
+    fids, live = bin_list(order, count, tctrl)
+    n, length = fids.shape
+    dev = ctrl.device
+    box = ctrl.gather(1, fids[..., None].expand(-1, -1, N_CTRL))
+    tiles_y, tiles_x = tile_grid(height, width)
+    y0 = torch.arange(tiles_y, device=dev, dtype=torch.int32) * TILE_H
+    x0 = torch.arange(tiles_x, device=dev, dtype=torch.int32) * TILE_W
+    y1 = torch.clamp(y0 + TILE_H, max=height)
+    x1 = torch.clamp(x0 + TILE_W, max=width)
+
+    def reaches(lo, hi, t0, t1):          # (I, tiles, L)
+        return (torch.minimum(hi[:, None], t1[None, :, None])
+                > torch.maximum(lo[:, None], t0[None, :, None]))
+
+    hit = (reaches(box[..., K_YLO], box[..., K_YHI], y0, y1)[:, :, None]
+           & reaches(box[..., K_XLO], box[..., K_XHI], x0, x1)[:, None]
+           & live[:, None, None])         # (I, tiles_y, tiles_x, L)
+    n_words = (length + 31) // 32
+    hit = torch.nn.functional.pad(hit, (0, 32 * n_words - length))
+    bit = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
+        32, device=dev)
+    words = (hit.reshape(n, tiles_y, tiles_x, n_words, 32) * bit).sum(-1)
+    # bit 31 is the sign of the i32 word
+    return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
+        torch.int32)
+
+
+def work_list_ref(bins):
+    """The flat (instance, tile) indices with any bit set, ascending: as a
+    set, the work list `raster_bin` appends for the composite."""
+    return torch.nonzero((bins != 0).any(-1).reshape(-1))[:, 0].to(
+        torch.int32)
 
 
 def visibility_ref(prep: BatchPrep, atlas: TextureAtlas,

@@ -20,6 +20,12 @@ the JAX package.  In order:
      painter's visibility, each against its plain torch twin on the same
      inputs: 0 differing pixels in colour, depth, winner and barycentric
      planes; keyed faces present; every non-opaque blend mode draws.
+     The same kernels once more at 150x100, which no tile shape divides
+     (ragged right and bottom tiles).  The binning (`raster_bin`, which
+     the visibility and composite wrappers launch first): its mask words
+     against `tile_bins_ref`, exact, for the kept faces in z-buffer and in
+     painter's order, the transparent list and the x-ray list, and its
+     work list, as a set, against the tiles with any bit.
      The sky (TPU kernel K5), for the night and the sunset sky:
      `raster_sky` and `raster_resolve` with the sky behind the faces
      against `sky_plane_ref` / `resolve_ref` in three pixel classes —
@@ -40,17 +46,25 @@ the JAX package.  In order:
      resolve over the plane, composite), and x-ray and painter's over the
      sunset sky.  The launch counters are reset just before each counted
      run and read just after.  Checks one launch per frame of each kernel
-     the path routes through and none of the others, finite states,
+     the path routes through (and one `raster_bin` per visibility and per
+     composite launch) and none of the others, finite states,
      >= 25% coverage in every instance's last frame, distinct instances,
      and that the last frame of 8 instances equals the plain render (over
      a sky: in the pixel classes above, with one RGB555 step allowed
      where a blended face lies over a sky pixel that is one step off);
   5. times (CUDA events) the frames, the stages of the opaque and the
-     transparent frame on a replay of the same frames, and each kernel
-     beside its plain twin at the main path's shapes, with the bound
+     transparent frame on a replay of the same frames (the second of two
+     replays, so that no stage pays for the allocator's growth), and each
+     kernel beside its plain twin at the main path's shapes, with the bound
      (the least time the card could take: bytes over 3.35 TB/s or f32
      operations over 67 TFLOP/s, whichever is larger); `select_gather`
      also beside `torch.take`, the one PyTorch call that computes it.
+     A visibility or composite time is that of everything its wrapper
+     launches (`raster_bin` + the consumer); `raster_bin` alone is timed
+     behind a long matrix product, so that its launches are queued before
+     the first runs and the time is the card's, not the host's.  Prints
+     the live entries per instance and the mean and maximum number of
+     entries per tile of each list.
 
 The last two lines of standard output are one JSON object with the
 kernels' measurements, then {"ok": true, "device": {...}}.  Any failed
@@ -71,6 +85,7 @@ WARMUP = 2             # untimed main-path frames before the counted run
 MODE_FRAMES = 3        # counted x-ray and painter's frames
 SEED = 0
 PLAIN_CHUNK = 128      # instances per plain-twin call when timing at N_MAIN
+RAGGED = (100, 150)    # a frame (rows, columns) that no tile shape divides
 
 # The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit)
 HBM_BYTES_S = 3.35e12
@@ -192,7 +207,8 @@ def run(dev):
           f"{senv.sky.star_dirs.shape[0]} stars; sunset sky: "
           f"{sky_envs['sunset'][1].sky.face_table.shape[0]} mountain faces")
     kernels = (_cuda.raster_visibility, _cuda.raster_resolve,
-               _cuda.raster_composite, _cuda.raster_sky, tg.select_gather)
+               _cuda.raster_composite, _cuda.raster_sky, tg.select_gather,
+               _cuda.raster_bin)
 
     def reset_counts():
         for k in kernels:
@@ -205,13 +221,13 @@ def run(dev):
         return stp.Actions(**{k: torch.from_numpy(v).to(dev)
                               for k, v in ts.actions_np(rng, n).items()})
 
-    def surf_for(e, states, settings):
+    def surf_for(e, states, settings, hw=(HEIGHT, WIDTH)):
         cams = stp.character_camera(states, e.params)
-        return scene_flat.build_surfaces_flat(e.flat, cams, settings, WIDTH,
-                                              HEIGHT)
+        return scene_flat.build_surfaces_flat(e.flat, cams, settings, hw[1],
+                                              hw[0])
 
-    def prep_for(e, surf, settings):
-        return rb.prep_instance(surf, e.flat.atlas, WIDTH, HEIGHT,
+    def prep_for(e, surf, settings, hw=(HEIGHT, WIDTH)):
+        return rb.prep_instance(surf, e.flat.atlas, hw[1], hw[0],
                                 painters=not settings.use_zbuffer,
                                 group_id=e.flat.f_group)
 
@@ -433,6 +449,89 @@ def run(dev):
 
     phase_done("kernels vs plain, opaque and transparent level")
 
+    # ---- the binning: raster_bin vs tile_bins_ref, and its work list ----
+    def bin_lists(p, pp, t, xp, xt):
+        """The four lists the wrappers bin: name -> (ctrl, list)."""
+        return {"opaque": (p.ctrl, dict(order=p.order, count=p.count)),
+                "painter's": (pp.ctrl, dict(order=pp.order, count=pp.count)),
+                "transparent": (p.ctrl, dict(tctrl=t.tctrl)),
+                "x-ray": (xp.ctrl, dict(tctrl=xt.tctrl))}
+
+    def check_bins(lists, hw, label):
+        bad = {}
+        worst = 0
+        for name, (ctrl, kw) in lists.items():
+            bins, work, work_len = _cuda.raster_bin(ctrl, *hw,
+                                                    want_work=True, **kw)
+            want = rb.tile_bins_ref(ctrl, *hw, **kw)
+            torch.cuda.synchronize()
+            got = work[:int(work_len[0])].sort().values
+            ref = rb.work_list_ref(want)
+            bad[name] = int((bins != want).sum())
+            bad[f"{name}, work list"] = int(
+                got.numel() != ref.numel() or bool((got != ref).any()))
+            if int(work_len[1]) != 0:
+                _fail(f"raster_bin, {name}: the cursor is not zero")
+            if not bool((want != 0).any()):
+                _fail(f"raster_bin, {name}: no bit is set")
+            worst = max(worst, int((bins.long() - want.long()).abs().max()))
+        print(f"raster_bin vs plain, {label}, N={N_CHECK} {hw[1]}x{hw[0]}, "
+              f"tiles {rb.TILE_W}x{rb.TILE_H}: differing words and work "
+              f"lists {bad}")
+        if any(bad.values()):
+            _fail(f"raster_bin disagrees with tile_bins_ref: {bad}")
+        return worst
+
+    err["raster_bin"] = check_bins(
+        bin_lists(tprep, pprep, tr, xprep, xtr), (HEIGHT, WIDTH),
+        "transparent level")
+
+    # ---- the same kernels on a frame with ragged right and bottom tiles ----
+    r_prep = prep_for(env, surf_for(env, states, game, RAGGED), game, RAGGED)
+    r_tsurf = surf_for(tenv, tstates, game, RAGGED)
+    r_tprep = prep_for(tenv, r_tsurf, game, RAGGED)
+    r_pprep = prep_for(tenv, r_tsurf, painters, RAGGED)
+    r_tr = rb.prep_transparent(r_tsurf, tenv.flat_static.transparent_idx)
+    r_xsurf = surf_for(tenv, tstates, xray, RAGGED)
+    r_xprep = rb.face_tables(r_xsurf, tatlas, RAGGED[1], RAGGED[0])
+    r_xtr = rb.prep_xray(r_xsurf, tenv.flat.f_group, True)
+    err["raster_bin"] = max(err["raster_bin"], check_bins(
+        bin_lists(r_tprep, r_pprep, r_tr, r_xprep, r_xtr), RAGGED,
+        "transparent level"))
+    rk = _cuda.raster_visibility(r_prep, atlas, *RAGGED)
+    rp = rb.visibility_ref(r_prep, atlas, *RAGGED)
+    rdiffs = differing(rk, rp, names)
+    rdiffs["color"] = int((
+        _cuda.raster_resolve(r_prep, atlas, *rk[1:], shading, 0)
+        != rb.resolve_ref(r_prep, atlas, *rp[1:], shading, 0)).sum())
+    r_opaque = _cuda.raster_visibility(r_tprep, tatlas, *RAGGED)
+    r_base = _cuda.raster_resolve(r_tprep, tatlas, *r_opaque[1:], shading, 0)
+    r_comp = _cuda.raster_composite(r_base.clone(), r_opaque[0], r_tr,
+                                    r_tprep, tatlas, shading, ZBUF)
+    rdiffs["composite color"] = int((r_comp != rb.composite_ref(
+        r_base, r_opaque[0], r_tr, r_tprep, tatlas, shading, ZBUF)).sum())
+    r_clear = torch.zeros_like(r_base)
+    r_zero = torch.zeros_like(r_opaque[0])
+    rdiffs["xray color"] = int((
+        _cuda.raster_composite(r_clear.clone(), r_zero, r_xtr, r_xprep,
+                               tatlas, shading, XRAY)
+        != rb.composite_ref(r_clear, r_zero, r_xtr, r_xprep, tatlas,
+                            shading, XRAY)).sum())
+    rdiffs.update({f"painters {k}": v for k, v in differing(
+        _cuda.raster_visibility(r_pprep, tatlas, *RAGGED, painters=True),
+        rb.visibility_ref(r_pprep, tatlas, *RAGGED, painters=True),
+        names).items()})
+    torch.cuda.synchronize()
+    print(f"kernel vs plain on a ragged frame, N={N_CHECK} "
+          f"{RAGGED[1]}x{RAGGED[0]}: differing pixels {rdiffs}; the "
+          f"composite changed {int((r_comp != r_base).sum())} pixels")
+    if any(rdiffs.values()):
+        _fail(f"kernels disagree with their twins on a ragged frame: "
+              f"{rdiffs}")
+    if not bool((r_comp != r_base).any()) or not bool((rk[1] >= 0).any()):
+        _fail("nothing was drawn on the ragged frame")
+    phase_done("raster_bin vs plain, kernels on a ragged frame")
+
     # ---- K5: the sky kernels vs their plain twins, N_CHECK instances ----
     sky_share = {}
     for sky_name, (lv, e, _, _) in sky_envs.items():
@@ -593,30 +692,35 @@ def run(dev):
         phase_done(f"main path, {label}")
         return counts, ms, start, acts
 
-    vis, res, comp, ksky, kgather = (k.__name__ for k in kernels)
+    vis, res, comp, ksky, kgather, kbin = (k.__name__ for k in kernels)
     runs = {}
     runs["opaque"] = main_path(env, level, game, FRAMES, WARMUP,
-                               {vis: 1, res: 1, comp: 0}, "opaque level")
+                               {vis: 1, res: 1, comp: 0, kbin: 1},
+                               "opaque level")
     runs["transparent"] = main_path(tenv, tlevel, game, FRAMES, WARMUP,
-                                    {vis: 1, res: 1, comp: 1},
+                                    {vis: 1, res: 1, comp: 1, kbin: 2},
                                     "transparent level")
     runs["xray"] = main_path(tenv, tlevel, xray, MODE_FRAMES, 1,
-                             {vis: 0, res: 0, comp: 1}, "x-ray")
+                             {vis: 0, res: 0, comp: 1, kbin: 1}, "x-ray")
     runs["painters"] = main_path(tenv, tlevel, painters, MODE_FRAMES, 1,
-                                 {vis: 1, res: 1, comp: 1}, "painter's")
+                                 {vis: 1, res: 1, comp: 1, kbin: 2},
+                                 "painter's")
     # over a sky: in-kernel route, sky-buffer route, x-ray, painter's
     runs["sky"] = main_path(senv, slevel, game, FRAMES, WARMUP,
-                            {vis: 1, res: 1}, "open-air, night sky")
+                            {vis: 1, res: 1, kbin: 1},
+                            "open-air, night sky")
     runs["sky_transparent"] = main_path(
         stenv, stlevel, game, FRAMES, WARMUP,
-        {ksky: 1, vis: 1, res: 1, comp: 1},
+        {ksky: 1, vis: 1, res: 1, comp: 1, kbin: 2},
         "transparent open-air, night sky")
     _, _, sunlevel, sunenv = sky_envs["sunset"]
     runs["sky_xray"] = main_path(sunenv, sunlevel, xray, MODE_FRAMES, 1,
-                                 {ksky: 1, comp: 1}, "x-ray, sunset sky")
+                                 {ksky: 1, comp: 1, kbin: 1},
+                                 "x-ray, sunset sky")
     runs["sky_painters"] = main_path(
         sunenv, sunlevel, painters, MODE_FRAMES, 1,
-        {ksky: 1, vis: 1, res: 1, comp: 1}, "painter's, sunset sky")
+        {ksky: 1, vis: 1, res: 1, comp: 1, kbin: 2},
+        "painter's, sunset sky")
 
     # ---- timing: frame stages, kernels and their plain twins ----
     # Each stage between synchronizes: the eager stages are launch-bound,
@@ -698,14 +802,24 @@ def run(dev):
                         scal=scal)
         return stage, last
 
+    # each replay twice, the second kept: in the first the allocator may
+    # still grow or free its pool (a stall of tens of ms that landed on
+    # whichever stage asked for memory)
     stages = {}
-    stages["opaque"], _ = replay(env, "opaque")
-    stages["transparent"], last = replay(tenv, "transparent")
+    for label, e, key in (("opaque", env, "opaque"),
+                          ("transparent", tenv, "transparent"),
+                          ("open-air, night sky", senv, "sky"),
+                          ("transparent open-air, night sky", stenv,
+                           "sky_transparent")):
+        replay(e, key)
+        stages[label], kept = replay(e, key)
+        if key == "transparent":
+            last = kept
+        elif key == "sky":
+            sky_last = kept
+    del kept
     prep, planes, color, tr = (last[k] for k in ("prep", "planes", "color",
                                                  "tr"))
-    stages["open-air, night sky"], sky_last = replay(senv, "sky")
-    stages["transparent open-air, night sky"], _ = replay(stenv,
-                                                          "sky_transparent")
     phase_done("stage replays")
 
     # the other modes' inputs at N_MAIN, from the transparent run's states
@@ -720,9 +834,17 @@ def run(dev):
                         device=dev)
     zero_depth = torch.zeros(clear.shape, device=dev)
 
-    def kernel_ms(fn, reps=10):
+    ballast = torch.ones((4096, 4096), device=dev)
+
+    def kernel_ms(fn, reps=10, queued=False):
+        """Milliseconds per call of `fn`, CUDA events over `reps` calls.
+        `queued`: the calls wait behind a matrix product of a few ms, so
+        all of them are enqueued before the first runs and a launch shorter
+        than its wrapper's host time is still timed on the card."""
         fn()
         torch.cuda.synchronize()
+        if queued:
+            torch.matmul(ballast, ballast)
         evs[0].record()
         for _ in range(reps):
             fn()
@@ -750,6 +872,16 @@ def run(dev):
     work = color.clone()
     xwork = clear.clone()
     ms, plain = {}, {}
+    # the binning alone, per list (the rows below include it): the kept
+    # faces' list is the one in the kernels line
+    lists_main = bin_lists(prep, pprep, tr, xprep, xtr)
+    bin_ms = {name: kernel_ms(lambda c=ctrl, kw=kw: _cuda.raster_bin(
+        c, HEIGHT, WIDTH, want_work="tctrl" in kw, **kw), queued=True)
+        for name, (ctrl, kw) in lists_main.items()}
+    ms[kbin] = bin_ms["opaque"]
+    plain[kbin] = chunked_plain_ms(lambda sl: rb.tile_bins_ref(
+        prep.ctrl[sl], HEIGHT, WIDTH, order=prep.order[sl],
+        count=prep.count[sl]))
     ms[vis] = kernel_ms(lambda: _cuda.raster_visibility(
         prep, tatlas, HEIGHT, WIDTH))
     plain[vis] = chunked_plain_ms(lambda sl: rb.visibility_ref(
@@ -864,6 +996,16 @@ def run(dev):
         bounds[name] = bound(n_kept * 4 * (1 + 6 + 16) + nbytes(p.count)
                              + atlas_b + 16 * plane,
                              OPS_COVER * bbox_area(p, p.order, kept(p)))
+    # the binning reads each live entry's list word and bbox (4 of the 8
+    # ctrl columns) and the counts, writes every mask word, and makes one
+    # overlap test (4 compares) per live entry and tile
+    tiles = rb.tile_grid(HEIGHT, WIDTH)
+    n_kept = int(prep.count.sum())
+    bounds[kbin] = bound(
+        n_kept * 4 * (1 + 4) + nbytes(prep.count)
+        + 4 * N_MAIN * tiles[0] * tiles[1] * ((prep.order.shape[1] + 31)
+                                              // 32),
+        4 * n_kept * tiles[0] * tiles[1])
     win = planes[1]
     n_faces = prep.attrs.shape[1]
     row = (torch.arange(N_MAIN, device=dev)[:, None, None] * n_faces
@@ -989,6 +1131,25 @@ def run(dev):
           f"torch.take {library[kgather]:.3f} ms, plain "
           f"{plain[kgather]:.3f} ms, bound {bounds[kgather][0]:.3f} ms "
           f"({gidx.numel()} indices, {GATHER_TABLE}-entry table) {card}")
+    def popcount(words):
+        x = words.long() & 0xFFFFFFFF
+        x = x - ((x >> 1) & 0x55555555)
+        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+        x = (x + (x >> 4)) & 0x0F0F0F0F
+        return ((x * 0x01010101) >> 24) & 0xFF
+
+    for name, (ctrl, kw) in lists_main.items():
+        per_tile = popcount(_cuda.raster_bin(ctrl, HEIGHT, WIDTH,
+                                             **kw)[0]).sum(-1)
+        n_live = rb.bin_list(**kw)[1].sum(1)
+        print(f"list {name}: {int(n_live.shape[0])} instances, length "
+              f"{rb.bin_list(**kw)[0].shape[1]}, live entries per instance "
+              f"mean {float(n_live.float().mean()):.2f} max "
+              f"{int(n_live.max())}; entries per {rb.TILE_W}x{rb.TILE_H} "
+              f"tile mean {float(per_tile.float().mean()):.2f} max "
+              f"{int(per_tile.max())}, tiles with none "
+              f"{float((per_tile == 0).float().mean()):.3f}; raster_bin "
+              f"alone {bin_ms[name]:.3f} ms (N={N_MAIN}) {card}")
     print("sky pixels one step off the plain version, share: "
           + ", ".join(f"{k if isinstance(k, str) else ' '.join(k)} {v:.6%}"
                       for k, v in sky_share.items()))
@@ -1009,6 +1170,8 @@ def run(dev):
               f"synchronized per stage): "
               + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
               + f", sum {sum(stage.values()):.3f} {card}")
+    with_bin = {vis: "opaque", "raster_visibility_painters": "painter's",
+                comp: "transparent", "raster_composite_xray": "x-ray"}
     sky_kernels = (fused, ksky, "raster_sky_sunset", kgather)
     for name in ms:
         where = ("open-air level" if name in sky_kernels
@@ -1016,7 +1179,10 @@ def run(dev):
         print(f"{name}: kernel {ms[name]:.3f} ms, plain {plain[name]:.3f} "
               f"ms, bound {bounds[name][0]:.3f} ms ({bounds[name][1]}) "
               f"(N={N_MAIN}, {where}, plain in chunks of "
-              f"{PLAIN_CHUNK}) {card}")
+              f"{PLAIN_CHUNK})"
+              + (f"; the kernel's time includes its raster_bin launch, "
+                 f"alone {bin_ms[with_bin[name]]:.3f} ms"
+                 if name in with_bin else "") + f" {card}")
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
@@ -1033,7 +1199,9 @@ def run(dev):
                 ksky: runs["sky_transparent"][0][ksky],
                 "raster_sky_sunset": (runs["sky_xray"][0][ksky]
                                       + runs["sky_painters"][0][ksky]),
-                kgather: gather_counts[kgather]}
+                kgather: gather_counts[kgather],
+                # one per visibility and one per composite launch
+                kbin: t_counts[kbin]}
     counted_on = {vis: "transparent level", res: "transparent level",
                   comp: "transparent level",
                   "raster_visibility_painters": "painter's",
@@ -1042,7 +1210,8 @@ def run(dev):
                   ksky: "transparent open-air, night sky",
                   "raster_sky_sunset": "x-ray and painter's, sunset sky",
                   kgather: "its entry point alone: on no main path, "
-                           "nothing in the package calls it"}
+                           "nothing in the package calls it",
+                  kbin: "transparent level"}
     replaces = {vis: f"{JAX_RB}:859",
                 "raster_visibility_painters": f"{JAX_RB}:941",
                 res: f"{JAX_RB}:1098",
@@ -1050,7 +1219,7 @@ def run(dev):
                 "raster_composite_xray": f"{JAX_RB}:1713",
                 fused: f"{JAX_RB}:1525", ksky: f"{JAX_RB}:712",
                 "raster_sky_sunset": f"{JAX_RB}:712",
-                kgather: f"{JAX_GATHER}:60"}
+                kgather: f"{JAX_GATHER}:60", kbin: f"{JAX_RB}:859"}
     err[fused] = max(err["raster_resolve_sky_night"],
                      err["raster_resolve_sky_sunset"])
     err[ksky] = err["raster_sky_night"]

@@ -8,7 +8,11 @@ jax, hence --noconftest there:
 The kernels of csrc/raster.cu are held against their plain torch twins
 bit for bit (both sides are uncontracted IEEE f32 in the same order), and
 the main paths (opaque, transparent, x-ray, painter's) are shown to
-launch them once per frame and to equal the CPU render.  The sky
+launch them once per frame and to equal the CPU render.  The binning
+(`raster_bin`, which the visibility and composite wrappers launch first)
+is held against `tile_bins_ref` word for word, and the kernels that read
+its masks also on a 150x100 frame, whose right and bottom tiles are
+ragged.  The sky
 (`raster_sky`, and `raster_resolve` with the sky behind the faces) is
 exact on face and mountain pixels and within one 8-bit step on the other
 sky pixels (acos, atan2, sin and pow differ by ulps between nvcc's and
@@ -33,6 +37,7 @@ from bonnie32_tpu_torch.types import CameraArrays
 
 pytestmark = pytest.mark.gpu
 H, W, N = 240, 320, 4
+RAGGED = (100, 150)      # rows, columns: no tile shape divides it
 
 
 @pytest.fixture(scope="module")
@@ -105,6 +110,42 @@ def test_wrappers_reject_bad_inputs(env):
                         attrs=torch.zeros((1, 4, 32), device=dev))
     with pytest.raises(ValueError):
         _cuda.raster_visibility(prep, e.flat.atlas, H, W)
+    order = prep.order.to(torch.int32)
+    with pytest.raises(ValueError):       # an i64 list
+        _cuda.raster_bin(prep.ctrl, H, W, order=prep.order, count=prep.count)
+    with pytest.raises(ValueError):       # neither list, both lists
+        _cuda.raster_bin(prep.ctrl, H, W)
+    with pytest.raises(ValueError):
+        _cuda.raster_bin(prep.ctrl, H, W, order=order, count=prep.count,
+                         tctrl=torch.zeros((1, 2, 8), dtype=torch.int32,
+                                           device=dev))
+    with pytest.raises(ValueError):       # order without its count
+        _cuda.raster_bin(prep.ctrl, H, W, order=order)
+    with pytest.raises(ValueError):       # a count of the wrong length
+        _cuda.raster_bin(prep.ctrl, H, W, order=order,
+                         count=torch.zeros(2, dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError):       # tables on the CPU
+        _cuda.raster_bin(prep.ctrl.cpu(), H, W, order=order.cpu(),
+                         count=prep.count.cpu())
+    with pytest.raises(ValueError):       # rows not 16-byte aligned
+        _cuda.raster_bin(torch.zeros(8 * 5 + 1, dtype=torch.int32,
+                                     device=dev)[1:].view(1, 5, 8), H, W,
+                         order=torch.zeros((1, 5), dtype=torch.int32,
+                                           device=dev), count=prep.count)
+    before = _cuda.raster_bin.launches
+    bins, work, work_len = _cuda.raster_bin(prep.ctrl, H, W, order=order,
+                                            count=prep.count, want_work=True)
+    torch.cuda.synchronize()
+    assert _cuda.raster_bin.launches == before + 1
+    assert not bins.any() and work_len.tolist() == [0, 0]
+    # empty lists launch nothing and mark nothing
+    for kw in (dict(order=order[:, :0], count=prep.count),
+               dict(tctrl=torch.zeros((1, 0, 8), dtype=torch.int32,
+                                      device=dev))):
+        bins, work, work_len = _cuda.raster_bin(prep.ctrl, *RAGGED,
+                                                want_work=True, **kw)
+        assert bins.shape == (1, *rb.tile_grid(*RAGGED), 0)
+        assert work_len.tolist() == [0, 0]
 
 
 @pytest.fixture(scope="module")
@@ -115,7 +156,8 @@ def tenv(env):
                                          ts.resolver, device=dev)
 
 
-def _transparent_inputs(tenv, settings):
+def _transparent_inputs(tenv, settings, hw=(H, W)):
+    H, W = hw
     level, dev, e = tenv
     states = rollout.initial_states(level, ts.spawn_point(level), N,
                                     device=dev)
@@ -127,6 +169,174 @@ def _transparent_inputs(tenv, settings):
                             painters=not settings.use_zbuffer,
                             group_id=e.flat.f_group)
     return e, surf, prep
+
+
+def _bin_lists(tenv, hw):
+    """The four lists the wrappers bin: name -> (ctrl, list)."""
+    game = RasterSettings.game()
+    e, surf, prep = _transparent_inputs(tenv, game, hw)
+    _, _, pprep = _transparent_inputs(
+        tenv, RasterSettings.game(use_zbuffer=False), hw)
+    tr = rb.prep_transparent(surf, e.flat_static.transparent_idx)
+    xsurf = _transparent_inputs(tenv, RasterSettings.game(xray_mode=True),
+                                hw)[1]
+    xtab = rb.face_tables(xsurf, e.flat.atlas, hw[1], hw[0])
+    xtr = rb.prep_xray(xsurf, e.flat.f_group)
+    return {"opaque": (prep.ctrl, dict(order=prep.order, count=prep.count)),
+            "painters": (pprep.ctrl, dict(order=pprep.order,
+                                          count=pprep.count)),
+            "transparent": (prep.ctrl, dict(tctrl=tr.tctrl)),
+            "xray": (xtab.ctrl, dict(tctrl=xtr.tctrl))}
+
+
+@pytest.mark.parametrize("hw", [(H, W), RAGGED],
+                         ids=lambda hw: f"{hw[1]}x{hw[0]}")
+def test_raster_bin_matches_plain(tenv, hw):
+    from bonnie32_tpu_torch.ops import _cuda
+    for name, (ctrl, kw) in _bin_lists(tenv, hw).items():
+        before = _cuda.raster_bin.launches
+        bins, work, work_len = _cuda.raster_bin(ctrl, *hw, want_work=True,
+                                                **kw)
+        want = rb.tile_bins_ref(ctrl, *hw, **kw)
+        torch.cuda.synchronize()
+        assert _cuda.raster_bin.launches == before + 1
+        assert want.any(), name
+        assert torch.equal(bins, want), name
+        # the work list: the tiles with any bit, in no fixed order
+        assert int(work_len[1]) == 0
+        got = work[:int(work_len[0])].sort().values
+        assert torch.equal(got, rb.work_list_ref(want)), name
+        bins, work, work_len = _cuda.raster_bin(ctrl, *hw, **kw)
+        assert work is None and work_len is None
+        assert torch.equal(bins, want), name
+
+
+def test_raster_bin_random_boxes(env):
+    """Boxes across, outside and on the borders of the frame; list lengths
+    around a word; dead entries."""
+    from bonnie32_tpu_torch.ops import _cuda
+    _, dev, _ = env
+    rng = np.random.default_rng(8)
+    h, w = RAGGED
+    for length in (1, 31, 32, 33, 97, 328, 1100):
+        ctrl = np.zeros((N, length, 8), np.int32)
+        lo_x = rng.integers(-20, w + 10, (N, length))
+        lo_y = rng.integers(-20, h + 10, (N, length))
+        ctrl[..., 0], ctrl[..., 1] = lo_x, lo_x + rng.integers(
+            -5, w // 2, (N, length))
+        ctrl[..., 2], ctrl[..., 3] = lo_y, lo_y + rng.integers(
+            -5, h // 2, (N, length))
+        ctrl = torch.from_numpy(ctrl).to(dev)
+        order = torch.from_numpy(np.stack(
+            [rng.permutation(length) for _ in range(N)]).astype(
+                np.int32)).to(dev)
+        count = torch.from_numpy(rng.integers(0, length + 1, N).astype(
+            np.int32)).to(dev)
+        tctrl = np.zeros((N, length, 8), np.int32)
+        tctrl[..., rb.T_FID] = rng.integers(0, length, (N, length))
+        tctrl[..., rb.T_VALID] = rng.integers(0, 4, (N, length)) != 0
+        tctrl[..., rb.T_EA] = rng.choice([0, 128, 255], (N, length))
+        for kw in (dict(order=order, count=count),
+                   dict(tctrl=torch.from_numpy(tctrl).to(dev))):
+            bins, work, work_len = _cuda.raster_bin(ctrl, h, w,
+                                                    want_work=True, **kw)
+            want = rb.tile_bins_ref(ctrl, h, w, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(bins, want), (length, list(kw))
+            got = work[:int(work_len[0])].sort().values
+            assert torch.equal(got, rb.work_list_ref(want))
+
+
+@pytest.mark.parametrize("hw", [(H, W), RAGGED],
+                         ids=lambda hw: f"{hw[1]}x{hw[0]}")
+@pytest.mark.parametrize("mode", ["zbuffer", "painters", "xray"])
+def test_binned_kernels_match_twins_at_both_sizes(tenv, mode, hw):
+    """Visibility (both merges) and composite (three modes) against their
+    twins on whole and on ragged tiles."""
+    from bonnie32_tpu_torch.ops import _cuda
+    H, W = hw
+    settings = RasterSettings.game(xray_mode=mode == "xray",
+                                   use_zbuffer=mode != "painters")
+    e, surf, prep = _transparent_inputs(tenv, settings, hw)
+    atlas = e.flat.atlas
+    cmode = rb.composite_mode(settings)
+    if mode == "xray":
+        prep = rb.face_tables(surf, atlas, W, H)
+        tr = rb.prep_xray(surf, e.flat.f_group)
+        color = torch.full((N, H, W), 0x10203040, dtype=torch.int32,
+                           device=prep.attrs.device)
+        depth = torch.zeros(color.shape, device=color.device)
+    else:
+        tr = rb.prep_transparent(surf, e.flat_static.transparent_idx)
+        planes = _cuda.raster_visibility(prep, atlas, H, W,
+                                         painters=mode == "painters")
+        twin = rb.visibility_ref(prep, atlas, H, W,
+                                 painters=mode == "painters")
+        torch.cuda.synchronize()
+        for k, p in zip(planes, twin):
+            assert torch.equal(k, p)
+        assert (planes[1] >= 0).any()
+        depth, winner, bcx, bcy = planes
+        color = _cuda.raster_resolve(prep, atlas, winner, bcx, bcy, 2, 0)
+    plain = rb.composite_ref(color, depth, tr, prep, atlas, 2, cmode)
+    kern = _cuda.raster_composite(color.clone(), depth, tr, prep, atlas, 2,
+                                  cmode)
+    torch.cuda.synchronize()
+    assert (kern != color).sum() > 0
+    assert torch.equal(kern, plain)
+
+
+def test_long_lists_take_several_rounds(tenv):
+    """Lists of more than 32 mask words with more entries in a tile than one
+    staged batch holds: every face of the level four times over (1312
+    faces, 41 words), and the x-ray list of those."""
+    from bonnie32_tpu_torch.ops import _cuda
+    game = RasterSettings.game()
+    e, surf, prep = _transparent_inputs(tenv, game)
+    atlas = e.flat.atlas
+    dev = prep.attrs.device
+    k, t = 4, prep.order.shape[1]
+    offset = (torch.arange(k, device=dev, dtype=torch.int32)
+              * t).repeat_interleave(t)
+    live = (torch.arange(t, device=dev)[None] < prep.count[:, None]).repeat(
+        1, k)
+    kept_first = torch.sort((~live).to(torch.int8), dim=1,
+                            stable=True).indices
+    deep = rb.BatchPrep(
+        count=prep.count * k,
+        order=(prep.order.repeat(1, k) + offset).gather(
+            1, kept_first).contiguous(),
+        ctrl=prep.ctrl.repeat(1, k, 1), attrs=prep.attrs.repeat(1, k, 1))
+    bins = _cuda.raster_bin(deep.ctrl, H, W, order=deep.order,
+                            count=deep.count)[0]
+    assert bins.shape[-1] > 32
+    kern = _cuda.raster_visibility(deep, atlas, H, W)
+    plain = rb.visibility_ref(deep, atlas, H, W)
+    torch.cuda.synchronize()
+    for a, b in zip(kern, plain):
+        assert torch.equal(a, b)
+    # x-ray over the same faces: every entry blends, so order shows
+    xsurf = _transparent_inputs(tenv, RasterSettings.game(xray_mode=True))[1]
+    xtab = rb.face_tables(xsurf, atlas, W, H)
+    xtr = rb.prep_xray(xsurf, e.flat.f_group)
+    tctrl = xtr.tctrl.repeat(1, k, 1)
+    tctrl[..., rb.T_FID] += offset
+    deep_tr = rb.TransPrep(tctrl=tctrl.contiguous(),
+                           tfscal=xtr.tfscal.repeat(1, k, 1))
+    deep_tab = rb.FaceTables(ctrl=xtab.ctrl.repeat(1, k, 1),
+                             attrs=xtab.attrs.repeat(1, k, 1))
+    color = torch.full((N, H, W), 0x10203040, dtype=torch.int32, device=dev)
+    depth = torch.zeros(color.shape, device=dev)
+    xbins = _cuda.raster_bin(deep_tab.ctrl, H, W, tctrl=deep_tr.tctrl)[0]
+    x = xbins.long() & 0xFFFFFFFF
+    per_tile = sum(((x >> b) & 1) for b in range(32)).sum(-1)
+    assert int(per_tile.max()) > 64      # more than one staged batch
+    want = rb.composite_ref(color, depth, deep_tr, deep_tab, atlas, 2,
+                            rb.COMPOSITE_XRAY)
+    got = _cuda.raster_composite(color.clone(), depth, deep_tr, deep_tab,
+                                 atlas, 2, rb.COMPOSITE_XRAY)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("mode", ["zbuffer", "painters", "xray"])
