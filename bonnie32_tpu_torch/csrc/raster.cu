@@ -89,22 +89,34 @@
 // the f32 bound does not see: x-ray, where every face of the level goes through it, is the
 // slowest launch of the file.  The resolve kernel reads three planes and
 // writes the colour (16 B a pixel) plus one attribute row and texel per
-// covered pixel, mostly L2 hits.  The sky writes 4 B a pixel and is bound
-// by its f32 operations: the ray (two divides, a square root), acos, atan2
-// where a tint or a cloud needs the azimuth, a second acos and a pow per body
-// whose glow the ray is inside, six sines and a pow per cloud layer, and
-// ~25 operations per mountain face whose box holds the pixel.  The TPU
-// gates sun, moon and mountains per chunk of rows.  Here the bodies' gate
-// is per pixel (a body beyond four times its size adds exactly nothing,
-// so the gate changes no value), and the mountains are staged per block:
-// a block of 256 pixels lies in one instance and spans one or two rows,
-// its threads load the records of the faces whose box reaches those rows
-// into shared memory once, and each pixel then tests only those (a first
-// version read every face's box from global memory at every pixel and
-// spent three quarters of its time there).  The sky's configuration is a
-// kernel argument (SkyParams, by value): a feature that is off costs a
-// uniform branch, and a new level costs no recompilation.  wgmma, TMA,
-// warp-specialised pipelines and fusing the kernels are later work.
+// covered pixel, mostly L2 hits.
+//
+// The sky writes 4 B a pixel.  Both its entry points give a block one
+// 32x16 tile of one instance's frame, a thread two rows of one column.
+// The block fills its tables once: ndc_x of its columns, ndc_y of its
+// rows (the plain version's expressions, so the values are the same) and
+// the camera basis.  Each thread then tests one mountain face's box
+// against the tile's pixel centres; a ballot and a prefix over the warps'
+// counts compact the survivors, in draw order, into shared memory, and a
+// tile that none survives (two thirds of them) stages nothing.  A pixel
+// walks only its tile's faces, well under one on average.  The fused
+// route skips the sky, tables and faces included, in a tile whose every
+// pixel a face drew.  Work that a select drops is not done: the azimuth
+// where neither the tint nor a cloud reads it, the tint and the haze
+// outside their ranges, a cloud layer's sines outside its band and its
+// pow below the threshold.
+//
+// What bounds the sky now is its instruction stream.  With only the
+// gradient on, a pixel runs about 270 machine instructions at close to
+// the SMs' issue rate: the view ray's square root and three divides, acos,
+// the divides by pi and of the gradient, every IEEE divide about ten
+// instructions with its slow-path check, and the NaN-keeping clamps.  The
+// rest is latency: each tile's box reads and barriers, which the blocks
+// resident on an SM hide only in part (PERF.md).  The sky's
+// configuration is a kernel argument (SkyParams, by value): a feature that
+// is off costs a uniform branch, and a new level costs no recompilation.
+// wgmma, TMA, warp-specialised pipelines and fusing the kernels are later
+// work.
 //
 // Numerics: every float expression keeps the JAX operation order and the
 // build passes -fmad=false, because the TPU never contracts a*b+c into an
@@ -312,7 +324,6 @@ struct SkyParams {
   float haze_extent, haze_intensity, haze_color[3];
   SkyBody body[2];
   SkyCloud cloud[2];
-  int need_theta;
   float half_w, half_h, vs, usq;   // view-ray constants
 };
 
@@ -324,6 +335,40 @@ constexpr int R_YMAX = 5, R_XMIN = 6, R_XMAX = 7, SKY_TIME = 9;
 constexpr int N_SKY_ROWS = 8, N_FACE_COLS = 12;
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
+
+// The tile of one instance's frame that one block of the sky's two entry
+// points owns (ops/_cuda.py builds with the SKY_TILE_H / SKY_TILE_W of
+// ops/skybox.py, which the plain culling uses), and the rows of one column
+// that one thread owns in it.
+#ifndef RASTER_SKY_TILE_W
+#define RASTER_SKY_TILE_W 32
+#endif
+#ifndef RASTER_SKY_TILE_H
+#define RASTER_SKY_TILE_H 16
+#endif
+constexpr int SKY_TILE_W = RASTER_SKY_TILE_W, SKY_TILE_H = RASTER_SKY_TILE_H;
+constexpr int SKY_THREAD_ROWS = 2;
+constexpr int SKY_THREADS = SKY_TILE_W * (SKY_TILE_H / SKY_THREAD_ROWS);
+constexpr int SKY_WARPS = SKY_THREADS / 32;
+static_assert(SKY_TILE_H % SKY_THREAD_ROWS == 0 && SKY_THREADS % 32 == 0 &&
+                  SKY_THREADS <= 1024,
+              "a sky tile is whole warps, each thread a column of rows");
+// registers capped so that 2048 threads fit an SM (32 a thread, a few
+// dozen bytes spilled): left to itself the compiler takes 48, 5 tiles an
+// SM, and both entry points ran 1-15% slower
+constexpr int SKY_MIN_BLOCKS = 2048 / SKY_THREADS;
+// A staged mountain face, five float4: its box (xmin, xmax, ymin, ymax);
+// the edge terms (y1 - y2, x2 - x1, y2 - y0, x0 - x2); x2, y2, 1/dnm;
+// the nine corner colours, corner-major, from float 11 on.
+constexpr int N_SKY_REC4 = 5;
+
+struct SkyTile {
+  // every face of a round of SKY_THREADS that survives the tile's cull
+  float4 rec[SKY_THREADS][N_SKY_REC4];
+  float ndc_x[SKY_TILE_W], ndc_y[SKY_TILE_H];   // the view ray's terms
+  float basis[10];                              // row-major, then time
+  int warp_count[2][SKY_WARPS];                 // survivors, per round
+};
 
 __device__ __forceinline__ float clipf(float x, float lo, float hi) {
   return nan_min(nan_max(x, lo), hi);
@@ -338,13 +383,20 @@ __device__ __forceinline__ void lerp3_where(bool sel, float c[3],
   for (int i = 0; i < 3; ++i) c[i] = c[i] * (1.0f - t) + b[i] * t;
 }
 
-// The sphere's word at pixel (xi, yi) of the instance whose scalar table
-// is `scal` (N_SKY_ROWS x vpad): the sky function at the pixel's view ray.
-__device__ int sky_sphere(const SkyParams& P, const float* __restrict__ scal,
-                          int vpad, int xi, int yi) {
-  const float* b = scal + R_BASIS * vpad;
-  const float ndc_x = (((float)xi + 0.5f) - P.half_w) / P.vs / P.usq;
-  const float ndc_y = (((float)yi + 0.5f) - P.half_h) / P.vs / P.usq;
+// The sphere's word at pixel (tx, ty) of the tile: the sky function at
+// the pixel's view ray.  The ray's column and row terms and the camera
+// basis come from the tile's tables.  Work whose result a select drops
+// is not done, which changes no value: the azimuth (atan2) only where the
+// tint or a cloud layer reads it; the tint only where its horizon factor
+// is not exactly 0 (|v - hz| / 0.3 >= 1 makes its weight 0, and the lerp
+// by 0 returns the colour) and within its spread; the haze within its
+// extent; a body's angle within its glow; a cloud layer's noise only
+// inside its band, and its pow only where the noise reaches the
+// threshold (elsewhere its weight is 0).
+__device__ int sky_sphere(const SkyParams& P, const SkyTile& sh, int tx,
+                          int ty) {
+  const float* b = sh.basis;
+  const float ndc_x = sh.ndc_x[tx], ndc_y = sh.ndc_y[ty];
   const float norm = sqrtf((ndc_x * ndc_x + ndc_y * ndc_y) + 1.0f);
   const float cx = ndc_x / norm, cy = ndc_y / norm, cz = 1.0f / norm;
   const float wx = (cx * b[0] + cy * b[3]) + cz * b[6];
@@ -352,11 +404,16 @@ __device__ int sky_sphere(const SkyParams& P, const float* __restrict__ scal,
   const float wz = (cx * b[2] + cy * b[5]) + cz * b[8];
   const float phi = acosf(clipf(wy, -1.0f, 1.0f));
   float theta = 0.0f;
-  if (P.need_theta) {
-    // jnp.mod(atan2, 2 pi) for an angle in [-pi, pi]
-    const float a = atan2f(wz, wx);
-    theta = a < 0.0f ? a + TWO_PI_F : a;
-  }
+  bool have_theta = false;
+  auto azimuth = [&]() {
+    if (!have_theta) {
+      // jnp.mod(atan2, 2 pi) for an angle in [-pi, pi]
+      const float a = atan2f(wz, wx);
+      theta = a < 0.0f ? a + TWO_PI_F : a;
+      have_theta = true;
+    }
+    return theta;
+  };
 
   const float v = phi / PI_F;
   const float hz = P.horizon;
@@ -372,21 +429,26 @@ __device__ int sky_sphere(const SkyParams& P, const float* __restrict__ scal,
     for (int i = 0; i < 3; ++i) c[i] = a0[i] * (1.0f - tc) + a1[i] * tc;
   }
   if (P.tint_enabled) {
-    float diff = fabsf(theta - P.tint_dir);
-    if (diff > PI_F) diff = TWO_PI_F - diff;
-    const float dt = 1.0f - diff / P.tint_spread;
-    const float strength =
-        diff < P.tint_spread ? (dt * dt) * P.tint_intensity : 0.0f;
-    const float horizon_factor =
-        1.0f - nan_min(fabsf(v - hz) / 0.3f, 1.0f);
-    lerp3_where(strength > 0.0f, c, P.tint_color, strength * horizon_factor);
+    const float q = fabsf(v - hz) / 0.3f;
+    if (!(q >= 1.0f)) {
+      float diff = fabsf(azimuth() - P.tint_dir);
+      if (diff > PI_F) diff = TWO_PI_F - diff;
+      if (diff < P.tint_spread) {
+        const float dt = 1.0f - diff / P.tint_spread;
+        const float strength = (dt * dt) * P.tint_intensity;
+        const float horizon_factor = 1.0f - nan_min(q, 1.0f);
+        lerp3_where(strength > 0.0f, c, P.tint_color,
+                    strength * horizon_factor);
+      }
+    }
   }
   if (P.haze_enabled) {
     const float dist = fabsf(v - hz);
-    const float de = 1.0f - dist / P.haze_extent;
-    const float s = dist < P.haze_extent ? (de * de) * P.haze_intensity
-                                         : 0.0f;
-    lerp3_where(s > 0.0f, c, P.haze_color, s);
+    if (dist < P.haze_extent) {
+      const float de = 1.0f - dist / P.haze_extent;
+      const float s = (de * de) * P.haze_intensity;
+      lerp3_where(s > 0.0f, c, P.haze_color, s);
+    }
   }
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
@@ -396,9 +458,11 @@ __device__ int sky_sphere(const SkyParams& P, const float* __restrict__ scal,
     if (!(cosd > B.cos_gate)) continue;   // beyond the glow: adds nothing
     const float ang = acosf(clipf(cosd, -1.0f, 1.0f));
     const float core = ang < B.size ? 1.0f - ang / B.size : 0.0f;
-    const float glow_t = clipf((ang - B.size) / B.glow_span, 0.0f, 1.0f);
-    const float glow = (ang >= B.size && ang < B.glow_r)
-        ? powf(1.0f - glow_t, B.glow_falloff) * 0.6f : 0.0f;
+    float glow = 0.0f;
+    if (ang >= B.size && ang < B.glow_r) {
+      const float glow_t = clipf((ang - B.size) / B.glow_span, 0.0f, 1.0f);
+      glow = powf(1.0f - glow_t, B.glow_falloff) * 0.6f;
+    }
     lerp3_where(core > 0.0f, c, B.color, core);
     lerp3_where(glow > 0.0f, c, B.glow_color, glow);
   }
@@ -406,20 +470,19 @@ __device__ int sky_sphere(const SkyParams& P, const float* __restrict__ scal,
   for (int k = 0; k < 2; ++k) {
     const SkyCloud& L = P.cloud[k];
     if (!L.enabled) continue;
-    const bool inside = v >= L.vmin && v <= L.vmax;
-    const float th_s = theta + b[SKY_TIME] * L.scroll_speed;
+    if (!(v >= L.vmin && v <= L.vmax)) continue;   // outside: weight 0
+    const float th_s = azimuth() + b[SKY_TIME] * L.scroll_speed;
     const float n1 = sinf(sinf(th_s * L.f1 + L.p1) * L.s1 + v * 50.0f);
     const float n2 = sinf(sinf(th_s * L.f2 + L.p2) * L.s2 + v * 120.0f);
     const float n3 = sinf(sinf(th_s * L.f3 + L.p3) * L.s3 + v * 200.0f);
     const float raw =
         clipf(((n1 * 0.5f + n2 * 0.3f) + n3 * 0.2f) + 0.5f, 0.0f, 1.0f);
+    if (raw < L.threshold) continue;   // the select drops pow: weight 0
     const float frac = nan_max((raw - L.threshold) / L.span, 0.0f);
-    // the select form: powf's value is dropped where raw < threshold
-    const float p = powf(frac, 0.7f);
-    const float cval = raw < L.threshold ? 0.0f : p;
+    const float cval = powf(frac, 0.7f);
     const float dist = fabsf(v - L.height) / L.half_thickness;
     const float edge = clipf(1.0f - dist, 0.0f, 1.0f);
-    const float s = inside ? (cval * L.opacity) * edge : 0.0f;
+    const float s = (cval * L.opacity) * edge;
     lerp3_where(s > 0.0f, c, L.color, s);
   }
   // clip, then the saturating convert (NaN -> 0)
@@ -427,103 +490,138 @@ __device__ int sky_sphere(const SkyParams& P, const float* __restrict__ scal,
          (u8_trunc_sat(c[2]) << 16);
 }
 
-// Mountain faces staged per block: x0 y0 x1 y1 x2 y2, 1/dnm, the box
-// xmin xmax ymin ymax, then the nine corner colours.
-constexpr int SKY_BATCH = 64;
-constexpr int N_SKY_REC = 20;
-constexpr int SR_INV = 6, SR_XMIN = 7, SR_XMAX = 8, SR_YMIN = 9;
-constexpr int SR_YMAX = 10, SR_COL = 11;
-struct SkyFaces {
-  float rec[SKY_BATCH][N_SKY_REC];
-  int live[SKY_BATCH];
-};
-
-// The sky word of pixel (xi, yi) for every thread of a 1-D block whose
-// pixels lie in one instance (scalar table `scal`) on rows y_first to
-// y_last.  EVERY thread of the block calls this (it synchronizes);
-// threads with `need` unset get 0 back.  A face is drawn where its box
-// holds the pixel centre and the three barycentrics are >= 0; an invalid
-// or culled face has an empty box.  The last covering face wins, and
-// only a pixel none covers evaluates the sphere.
-__device__ int sky_pixel(SkyFaces& sh, const SkyParams& P,
+// The sky words of the SKY_THREAD_ROWS pixels (xi, y_first + k) of this
+// block's tile of instance blockIdx.z, whose scalar table is `scal`, into
+// `word` where `need[k]` is set.  EVERY thread of the block calls this (it
+// synchronizes).
+//
+// The tile's tables first: ndc_x of each column and ndc_y of each row
+// (the expressions of the plain version, once per tile instead of once a
+// pixel), and the camera basis and time.  Then the mountain faces, in
+// rounds of SKY_THREADS: each thread tests one face's box against the
+// pixel centres of the tile, a ballot and a prefix over the warps' counts
+// give each survivor its place in draw order, and the survivors alone are
+// staged; a round no face survives stages nothing.  With `words` given,
+// lane 0 of each warp stores its ballot there: bit b of word w is face
+// 32 w + b (the per-tile lists of ops/skybox.py `sky_tile_faces_ref`).
+// A face is drawn where its box holds the pixel centre and the three
+// barycentrics are >= 0; an invalid or culled face has an empty box.  The
+// last covering face wins, and only a pixel none covers evaluates the
+// sphere.
+__device__ void sky_tile(SkyTile& sh, const SkyParams& P,
                          const float* __restrict__ scal, int vpad,
                          const int* __restrict__ faces, int n_faces,
-                         int y_first, int y_last, bool need, int xi,
-                         int yi) {
-  const float px = (float)xi + 0.5f, py = (float)yi + 0.5f;
-  const float row_lo = (float)y_first + 0.5f;
-  const float row_hi = (float)y_last + 0.5f;
-  int word = 0;
-  bool hit = false;
-  for (int base = 0; base < n_faces; base += SKY_BATCH) {
-    const int nb = min(SKY_BATCH, n_faces - base);
-    __syncthreads();   // the previous batch is no longer read
-    for (int f = threadIdx.x; f < nb; f += blockDim.x) {
-      const int g = base + f;
-      const float ymin = scal[R_YMIN * vpad + g];
-      const float ymax = scal[R_YMAX * vpad + g];
-      // block-uniform per face: does its box reach this block's rows
-      const bool live = ymax >= row_lo && ymin <= row_hi;
-      sh.live[f] = live;
-      if (!live) continue;
-      const int* fc = faces + g * N_FACE_COLS;
-      float* r = sh.rec[f];
-      for (int k = 0; k < 3; ++k) {
-        r[2 * k] = scal[R_MSX * vpad + fc[k]];
-        r[2 * k + 1] = scal[R_MSY * vpad + fc[k]];
-      }
-      r[SR_INV] = scal[R_INV * vpad + g];
-      r[SR_XMIN] = scal[R_XMIN * vpad + g];
-      r[SR_XMAX] = scal[R_XMAX * vpad + g];
-      r[SR_YMIN] = ymin;
-      r[SR_YMAX] = ymax;
-      for (int k = 0; k < 9; ++k) r[SR_COL + k] = (float)fc[3 + k];
-    }
-    __syncthreads();
-    if (!need) continue;
-    for (int f = 0; f < nb; ++f) {
-      if (!sh.live[f]) continue;
-      const float* r = sh.rec[f];
-      if (!(px >= r[SR_XMIN] && px <= r[SR_XMAX] && py >= r[SR_YMIN] &&
-            py <= r[SR_YMAX]))
-        continue;
-      const float x0 = r[0], y0 = r[1], x1 = r[2], y1 = r[3];
-      const float x2 = r[4], y2 = r[5];
-      const float w0 =
-          ((y1 - y2) * (px - x2) + (x2 - x1) * (py - y2)) * r[SR_INV];
-      const float w1 =
-          ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) * r[SR_INV];
-      const float w2 = (1.0f - w0) - w1;
-      if (!(w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f)) continue;
-      hit = true;
-      word = 255 << 24;
-      for (int ch = 0; ch < 3; ++ch)
-        word |= u8_trunc_sat(truncf(
-                    (w0 * r[SR_COL + ch] + w1 * r[SR_COL + 3 + ch]) +
-                    w2 * r[SR_COL + 6 + ch]))
-                << (8 * ch);
+                         int* __restrict__ words, int height, int width,
+                         const bool need[SKY_THREAD_ROWS], int xi, int y_first,
+                         int word[SKY_THREAD_ROWS]) {
+  const int tx = threadIdx.x, row0 = threadIdx.y * SKY_THREAD_ROWS;
+  const int t = threadIdx.y * SKY_TILE_W + tx;
+  const int lane = t & 31, warp = t >> 5;
+  const int x0 = blockIdx.x * SKY_TILE_W, y0 = blockIdx.y * SKY_TILE_H;
+  for (int i = t; i < SKY_TILE_W + SKY_TILE_H + 10; i += SKY_THREADS) {
+    if (i < SKY_TILE_W) {
+      sh.ndc_x[i] = (((float)(x0 + i) + 0.5f) - P.half_w) / P.vs / P.usq;
+    } else if (i < SKY_TILE_W + SKY_TILE_H) {
+      const int r = i - SKY_TILE_W;
+      sh.ndc_y[r] = (((float)(y0 + r) + 0.5f) - P.half_h) / P.vs / P.usq;
+    } else {
+      const int j = i - SKY_TILE_W - SKY_TILE_H;
+      sh.basis[j] = scal[R_BASIS * vpad + j];
     }
   }
-  if (need && !hit) word = sky_sphere(P, scal, vpad, xi, yi);
-  return word;
-}
+  // the pixel centres of the tile's part of the frame
+  const float lo_x = (float)x0 + 0.5f, lo_y = (float)y0 + 0.5f;
+  const float hi_x = (float)(min(x0 + SKY_TILE_W, width) - 1) + 0.5f;
+  const float hi_y = (float)(min(y0 + SKY_TILE_H, height) - 1) + 0.5f;
+  const float px = (float)xi + 0.5f;
+  const int n_words = (n_faces + 31) / 32;
 
-// What a pixel of resolve shows where no face drew: a plane (I, H, W) or,
-// without one, a constant word; or the sky.  The kernel is compiled once
-// for each, so that a level without a sky carries none of the sky's
-// shared memory or arguments.
-struct FlatBackground {
-  static constexpr bool IS_SKY = false;
-  int word;
-  const int* plane;
-};
-struct SkyBackground {
-  static constexpr bool IS_SKY = true;
-  const float* skyscal;      // (I, N_SKY_ROWS, vpad)
-  const int* sky_faces;      // (n_sky_faces, N_FACE_COLS)
-  int n_sky_faces, vpad;
-  SkyParams params;
-};
+  bool hit[SKY_THREAD_ROWS], any_need = false;
+#pragma unroll
+  for (int k = 0; k < SKY_THREAD_ROWS; ++k) {
+    word[k] = 0;
+    hit[k] = false;
+    any_need |= need[k];
+  }
+  for (int base = 0, rnd = 0; base < n_faces; base += SKY_THREADS, ++rnd) {
+    const int g = base + t;
+    bool live = false;
+    float xmin = 0.0f, xmax = 0.0f, ymin = 0.0f, ymax = 0.0f;
+    if (g < n_faces) {
+      xmin = scal[R_XMIN * vpad + g];
+      xmax = scal[R_XMAX * vpad + g];
+      ymin = scal[R_YMIN * vpad + g];
+      ymax = scal[R_YMAX * vpad + g];
+      live = xmax >= lo_x && xmin <= hi_x && ymax >= lo_y && ymin <= hi_y;
+    }
+    const unsigned m = __ballot_sync(FULL, live);
+    if (lane == 0) {
+      sh.warp_count[rnd & 1][warp] = __popc(m);
+      if (words != nullptr && base / 32 + warp < n_words)
+        words[base / 32 + warp] = (int)m;
+    }
+    __syncthreads();   // counts (and, in round 0, the tables) are written
+    int before = 0, total = 0;
+#pragma unroll
+    for (int w = 0; w < SKY_WARPS; ++w) {
+      const int cnt = sh.warp_count[rnd & 1][w];
+      before += w < warp ? cnt : 0;
+      total += cnt;
+    }
+    if (total == 0) continue;   // block-uniform: nothing to stage
+    if (live) {
+      const int* fc = faces + g * N_FACE_COLS;
+      const float fx0 = scal[R_MSX * vpad + fc[0]];
+      const float fy0 = scal[R_MSY * vpad + fc[0]];
+      const float fx1 = scal[R_MSX * vpad + fc[1]];
+      const float fy1 = scal[R_MSY * vpad + fc[1]];
+      const float fx2 = scal[R_MSX * vpad + fc[2]];
+      const float fy2 = scal[R_MSY * vpad + fc[2]];
+      float4* r = sh.rec[before + __popc(m & ((1u << lane) - 1u))];
+      r[0] = make_float4(xmin, xmax, ymin, ymax);
+      r[1] = make_float4(fy1 - fy2, fx2 - fx1, fy2 - fy0, fx0 - fx2);
+      r[2] = make_float4(fx2, fy2, scal[R_INV * vpad + g], (float)fc[3]);
+      r[3] = make_float4((float)fc[4], (float)fc[5], (float)fc[6],
+                         (float)fc[7]);
+      r[4] = make_float4((float)fc[8], (float)fc[9], (float)fc[10],
+                         (float)fc[11]);
+    }
+    __syncthreads();   // the survivors are staged
+    if (!any_need) continue;
+    for (int f = 0; f < total; ++f) {
+      const float4 box = sh.rec[f][0];
+      if (!(px >= box.x && px <= box.y)) continue;
+      const float4 e = sh.rec[f][1];
+      const float4 q = sh.rec[f][2];
+      const float* col = reinterpret_cast<const float*>(sh.rec[f]) + 11;
+      const float dx = px - q.x;
+#pragma unroll
+      for (int k = 0; k < SKY_THREAD_ROWS; ++k) {
+        const float py = (float)(y_first + k) + 0.5f;
+        if (!need[k] || !(py >= box.z && py <= box.w)) continue;
+        const float dy = py - q.y;
+        const float w0 = (e.x * dx + e.y * dy) * q.z;
+        const float w1 = (e.z * dx + e.w * dy) * q.z;
+        const float w2 = (1.0f - w0) - w1;
+        if (!(w0 >= 0.0f && w1 >= 0.0f && w2 >= 0.0f)) continue;
+        hit[k] = true;
+        int wd = 255 << 24;
+        for (int ch = 0; ch < 3; ++ch)
+          wd |= u8_trunc_sat(truncf((w0 * col[ch] + w1 * col[3 + ch]) +
+                                    w2 * col[6 + ch]))
+                << (8 * ch);
+        word[k] = wd;
+      }
+    }
+    // the next round writes the other count buffer, and its staging
+    // follows its own barrier, which every thread reaches only after its
+    // walk here
+  }
+  if (n_faces == 0) __syncthreads();   // the tables are written
+#pragma unroll
+  for (int k = 0; k < SKY_THREAD_ROWS; ++k)
+    if (need[k] && !hit[k]) word[k] = sky_sphere(P, sh, tx, row0 + k);
+}
 
 // ---- binning: which entries of an ordered list touch which tile ----
 //
@@ -794,25 +892,36 @@ visibility_kernel(const int* __restrict__ order,
   }
 }
 
-// The full sky plane.  Grid: (blocks of 256 pixels of one plane,
-// instances).
-__global__ void __launch_bounds__(256)
+// The full sky plane.  Grid: (tiles_x, tiles_y, instances) of sky
+// tiles; `tile_words` (I, tiles_y, tiles_x, ceil(n_sky_faces / 32)) or
+// null receives each tile's mountain faces.
+__global__ void __launch_bounds__(SKY_THREADS, SKY_MIN_BLOCKS)
 sky_kernel(const float* __restrict__ skyscal,
            const int* __restrict__ sky_faces, int* __restrict__ color_out,
-           int n_sky_faces, int vpad, int height, int width,
-           const __grid_constant__ SkyParams sky) {
-  __shared__ SkyFaces sh;
-  const int plane = height * width;
-  const int inst = blockIdx.y;
-  const int first = blockIdx.x * blockDim.x;
-  const int pix = first + threadIdx.x;
-  const bool inside = pix < plane;
-  const int word = sky_pixel(
-      sh, sky, skyscal + (size_t)inst * N_SKY_ROWS * vpad, vpad, sky_faces,
-      n_sky_faces, first / width,
-      (min(first + (int)blockDim.x, plane) - 1) / width, inside,
-      pix % width, pix / width);
-  if (inside) color_out[(size_t)inst * plane + pix] = word;
+           int* __restrict__ tile_words, int n_sky_faces, int vpad,
+           int height, int width, const __grid_constant__ SkyParams sky) {
+  __shared__ SkyTile sh;
+  const int inst = blockIdx.z;
+  const int xi = blockIdx.x * SKY_TILE_W + threadIdx.x;
+  const int y_first = blockIdx.y * SKY_TILE_H + threadIdx.y * SKY_THREAD_ROWS;
+  bool inside[SKY_THREAD_ROWS];
+  int word[SKY_THREAD_ROWS];
+#pragma unroll
+  for (int k = 0; k < SKY_THREAD_ROWS; ++k)
+    inside[k] = xi < width && y_first + k < height;
+  int* words = nullptr;
+  if (tile_words != nullptr)
+    words = tile_words +
+            (((size_t)inst * gridDim.y + blockIdx.y) * gridDim.x +
+             blockIdx.x) * ((n_sky_faces + 31) / 32);
+  sky_tile(sh, sky, skyscal + (size_t)inst * N_SKY_ROWS * vpad, vpad,
+           sky_faces, n_sky_faces, words, height, width, inside, xi, y_first,
+           word);
+#pragma unroll
+  for (int k = 0; k < SKY_THREAD_ROWS; ++k)
+    if (inside[k])
+      color_out[((size_t)inst * height + y_first + k) * width + xi] =
+          word[k];
 }
 
 // The colour word of the pixel whose winner is face row `a`; false where
@@ -851,8 +960,8 @@ __device__ __forceinline__ bool resolve_pixel(
   return true;
 }
 
-// Grid: (blocks of 256 pixels of one plane, instances).
-template <typename Bg>
+// Where no face drew: a plane (I, H, W) or, without one, a constant
+// word.  Grid: (blocks of 256 pixels of one plane, instances).
 __global__ void __launch_bounds__(256)
 resolve_kernel(const int* __restrict__ winner,
                const float* __restrict__ bcx_in,
@@ -863,38 +972,82 @@ resolve_kernel(const int* __restrict__ winner,
                const int* __restrict__ tex_w,
                const int* __restrict__ tex_h,
                int* __restrict__ color_out,
+               const int* __restrict__ bg_plane,
                int n_faces, int height, int width,
-               int shading, const __grid_constant__ Bg bg) {
+               int shading, int bg_word) {
   const int plane = height * width;
   const int inst = blockIdx.y;
-  const int first = blockIdx.x * blockDim.x;
-  const int pix = first + threadIdx.x;
-  const bool inside = pix < plane;
+  const int pix = blockIdx.x * blockDim.x + threadIdx.x;
+  if (pix >= plane) return;
   const size_t o = (size_t)inst * plane + pix;
   const int yi = pix / width;
   const int xi = pix % width;
 
   int word = 0;
   bool drawn = false;
-  if (inside) {
-    const int w = winner[o];
-    if (w >= 0)
-      drawn = resolve_pixel(attrs + ((size_t)inst * n_faces + w) * N_COLS,
-                            bcx_in[o], bcy_in[o], tex_data, tex_off, tex_w,
-                            tex_h, shading, xi, yi, word);
+  const int w = winner[o];
+  if (w >= 0)
+    drawn = resolve_pixel(attrs + ((size_t)inst * n_faces + w) * N_COLS,
+                          bcx_in[o], bcy_in[o], tex_data, tex_off, tex_w,
+                          tex_h, shading, xi, yi, word);
+  if (!drawn) word = bg_plane != nullptr ? bg_plane[o] : bg_word;
+  color_out[o] = word;
+}
+
+// The same with the sky where no face drew.  Grid: (tiles_x, tiles_y,
+// instances) of sky tiles; a tile whose every pixel a face drew skips
+// the sky, and its tables and faces, altogether.
+__global__ void __launch_bounds__(SKY_THREADS, SKY_MIN_BLOCKS)
+resolve_sky_kernel(const int* __restrict__ winner,
+                   const float* __restrict__ bcx_in,
+                   const float* __restrict__ bcy_in,
+                   const float* __restrict__ attrs,
+                   const int* __restrict__ tex_data,
+                   const int* __restrict__ tex_off,
+                   const int* __restrict__ tex_w,
+                   const int* __restrict__ tex_h,
+                   int* __restrict__ color_out,
+                   const float* __restrict__ skyscal,
+                   const int* __restrict__ sky_faces,
+                   int n_faces, int height, int width, int shading,
+                   int n_sky_faces, int vpad,
+                   const __grid_constant__ SkyParams sky) {
+  __shared__ SkyTile sh;
+  const int inst = blockIdx.z;
+  const int xi = blockIdx.x * SKY_TILE_W + threadIdx.x;
+  const int y_first = blockIdx.y * SKY_TILE_H + threadIdx.y * SKY_THREAD_ROWS;
+  int word[SKY_THREAD_ROWS];
+  bool need[SKY_THREAD_ROWS], any_need = false;
+#pragma unroll
+  for (int k = 0; k < SKY_THREAD_ROWS; ++k) {
+    const int yi = y_first + k;
+    const size_t o = ((size_t)inst * height + yi) * width + xi;
+    word[k] = 0;
+    bool drawn = false;
+    if (xi < width && yi < height) {
+      const int w = winner[o];
+      if (w >= 0)
+        drawn = resolve_pixel(attrs + ((size_t)inst * n_faces + w) * N_COLS,
+                              bcx_in[o], bcy_in[o], tex_data, tex_off,
+                              tex_w, tex_h, shading, xi, yi, word[k]);
+    }
+    need[k] = xi < width && yi < height && !drawn;
+    any_need |= need[k];
   }
-  const bool need = inside && !drawn;
-  if constexpr (Bg::IS_SKY) {   // every thread of the block takes part
-    __shared__ SkyFaces sh;
-    const int s = sky_pixel(
-        sh, bg.params, bg.skyscal + (size_t)inst * N_SKY_ROWS * bg.vpad,
-        bg.vpad, bg.sky_faces, bg.n_sky_faces, first / width,
-        (min(first + (int)blockDim.x, plane) - 1) / width, need, xi, yi);
-    if (need) word = s;
-  } else if (need) {
-    word = bg.plane != nullptr ? bg.plane[o] : bg.word;
+  if (__syncthreads_or(any_need)) {   // block-uniform
+    int s[SKY_THREAD_ROWS];
+    sky_tile(sh, sky, skyscal + (size_t)inst * N_SKY_ROWS * vpad, vpad,
+             sky_faces, n_sky_faces, nullptr, height, width, need, xi,
+             y_first, s);
+#pragma unroll
+    for (int k = 0; k < SKY_THREAD_ROWS; ++k)
+      if (need[k]) word[k] = s[k];
   }
-  if (inside) color_out[o] = word;
+#pragma unroll
+  for (int k = 0; k < SKY_THREAD_ROWS; ++k)
+    if (xi < width && y_first + k < height)
+      color_out[((size_t)inst * height + y_first + k) * width + xi] =
+          word[k];
 }
 
 // Phase 3.  ZACTIVE: z-test against the opaque depth (z-buffer mode, not
@@ -1147,31 +1300,40 @@ int raster_resolve(const int* winner, const float* bcx, const float* bcy,
                    int n_faces, int height, int width, int shading,
                    int background, int n_sky_faces, int vpad,
                    void* stream) {
-  const int threads = 256;
-  const dim3 grid((height * width + threads - 1) / threads, n_inst);
   if (sky != nullptr && bg_plane != nullptr) return (int)cudaErrorInvalidValue;
+  if (n_inst == 0 || height == 0 || width == 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   if (sky != nullptr) {
-    resolve_kernel<SkyBackground><<<grid, threads, 0, s>>>(
+    const dim3 grid((width + SKY_TILE_W - 1) / SKY_TILE_W,
+                    (height + SKY_TILE_H - 1) / SKY_TILE_H, n_inst);
+    resolve_sky_kernel<<<grid, dim3(SKY_TILE_W, SKY_TILE_H / SKY_THREAD_ROWS), 0,
+                         s>>>(
         winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
-        n_faces, height, width, shading,
-        SkyBackground{skyscal, sky_faces, n_sky_faces, vpad, *sky});
+        skyscal, sky_faces, n_faces, height, width, shading, n_sky_faces,
+        vpad, *sky);
   } else {
-    resolve_kernel<FlatBackground><<<grid, threads, 0, s>>>(
+    const int threads = 256;
+    const dim3 grid((height * width + threads - 1) / threads, n_inst);
+    resolve_kernel<<<grid, threads, 0, s>>>(
         winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
-        n_faces, height, width, shading,
-        FlatBackground{background, bg_plane});
+        bg_plane, n_faces, height, width, shading, background);
   }
   return (int)cudaGetLastError();
 }
 
+// `tile_words` (I, tiles_y, tiles_x, ceil(n_sky_faces / 32)) or null:
+// each sky tile's mountain faces, as bits in draw order.
 int raster_sky(const float* skyscal, const int* sky_faces,
-               const SkyParams* sky, int* color, int n_inst, int n_sky_faces,
-               int vpad, int height, int width, void* stream) {
-  const int threads = 256;
-  const dim3 grid((height * width + threads - 1) / threads, n_inst);
-  sky_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      skyscal, sky_faces, color, n_sky_faces, vpad, height, width, *sky);
+               const SkyParams* sky, int* color, int* tile_words,
+               int n_inst, int n_sky_faces, int vpad, int height, int width,
+               void* stream) {
+  if (n_inst == 0 || height == 0 || width == 0) return 0;
+  const dim3 grid((width + SKY_TILE_W - 1) / SKY_TILE_W,
+                  (height + SKY_TILE_H - 1) / SKY_TILE_H, n_inst);
+  sky_kernel<<<grid, dim3(SKY_TILE_W, SKY_TILE_H / SKY_THREAD_ROWS), 0,
+               (cudaStream_t)stream>>>(skyscal, sky_faces, color, tile_words,
+                                       n_sky_faces, vpad, height, width,
+                                       *sky);
   return (int)cudaGetLastError();
 }
 

@@ -47,11 +47,15 @@ def _nvcc() -> str:
 
 
 def nvcc_flags() -> tuple:
-    """NVCC_FLAGS plus the tile shape of the plain binning
-    (raster_batch.TILE_H, TILE_W), which csrc/raster.cu is built for."""
+    """NVCC_FLAGS plus the tile shapes of the plain binning
+    (raster_batch.TILE_H, TILE_W) and of the plain sky culling
+    (skybox.SKY_TILE_H, SKY_TILE_W), which csrc/raster.cu is built for."""
     from . import raster_batch as rb
+    from . import skybox as sky_ops
     return NVCC_FLAGS + (f"-DRASTER_TILE_H={rb.TILE_H}",
-                         f"-DRASTER_TILE_W={rb.TILE_W}")
+                         f"-DRASTER_TILE_W={rb.TILE_W}",
+                         f"-DRASTER_SKY_TILE_H={sky_ops.SKY_TILE_H}",
+                         f"-DRASTER_SKY_TILE_W={sky_ops.SKY_TILE_W}")
 
 
 def library_path(name: str = "raster") -> Path:
@@ -130,8 +134,7 @@ class SkyParams(ctypes.Structure):
                    ("haze_extent", ctypes.c_float),
                    ("haze_intensity", ctypes.c_float),
                    ("haze_color", ctypes.c_float * 3),
-                   ("body", _SkyBody * 2), ("cloud", _SkyCloud * 2),
-                   ("need_theta", ctypes.c_int)]
+                   ("body", _SkyBody * 2), ("cloud", _SkyCloud * 2)]
                 + [(n, ctypes.c_float) for n in (
                     "half_w", "half_h", "vs", "usq")])
 
@@ -179,7 +182,7 @@ def load(name: str = "raster"):
                 lib.raster_resolve.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
                 lib.raster_composite.argtypes = ([ptr] * 13 + [i32] * 7
                                                  + [ptr])
-                lib.raster_sky.argtypes = [ptr] * 4 + [i32] * 5 + [ptr]
+                lib.raster_sky.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
                 for fn in (lib.raster_bin, lib.raster_visibility,
                            lib.raster_resolve, lib.raster_composite,
                            lib.raster_sky):
@@ -331,7 +334,8 @@ def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int, background):
     n, height, width = winner.shape
     t = prep.attrs.shape[1]
     if n > 65535:
-        raise ValueError(f"{n} instances exceed the grid's y limit 65535")
+        raise ValueError(f"{n} instances exceed the grid's y and z limit "
+                         f"65535")
     args = [_check("winner", winner, torch.int32, (n, height, width), dev),
             _check("bcx", bcx, torch.float32, (n, height, width), dev),
             _check("bcy", bcy, torch.float32, (n, height, width), dev),
@@ -361,23 +365,32 @@ def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int, background):
 raster_resolve.launches = 0
 
 
-def raster_sky(sky, scal, height: int, width: int):
+def raster_sky(sky, scal, height: int, width: int, want_tiles: bool = False):
     """Launch `raster_sky`: sphere + mountains of every instance of the
     scalar table `scal` (I, 8, vpad) f32 (ops.skybox.prep_sky_scal), the
-    packed RGBA8 plane (I, H, W) i32."""
+    packed RGBA8 plane (I, H, W) i32.  With `want_tiles`, returns
+    (plane, words): words (I, tiles_y, tiles_x, ceil(F / 32)) i32 are the
+    mountain faces each sky tile staged, as ops.skybox.sky_tile_faces_ref
+    gives them."""
+    from . import skybox as sky_ops
     lib = load()
     dev = scal.device
     n = scal.shape[0]
     if n > 65535:
-        raise ValueError(f"{n} instances exceed the grid's y limit 65535")
+        raise ValueError(f"{n} instances exceed the grid's z limit 65535")
     ptrs, params, nf = _sky_args(sky, scal, n, height, width, dev)
     color = torch.empty((n, height, width), dtype=torch.int32, device=dev)
+    words = None
+    if want_tiles:
+        words = torch.zeros((n, *sky_ops.sky_tile_grid(height, width),
+                             (nf + 31) // 32), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.raster_sky(*ptrs, ctypes.addressof(params), color.data_ptr(),
-                         n, nf, sky.vpad, height, width, stream)
+                         words.data_ptr() if want_tiles else None, n, nf,
+                         sky.vpad, height, width, stream)
     _raise_on(err, "raster_sky")
     raster_sky.launches += 1
-    return color
+    return (color, words) if want_tiles else color
 
 
 raster_sky.launches = 0

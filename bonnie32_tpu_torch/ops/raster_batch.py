@@ -264,7 +264,6 @@ def tile_bins_ref(ctrl, height: int, width: int, order=None, count=None,
     32 w + b is live and its bbox holds a pixel of the frame inside the
     tile.  Bit order is list order, i.e. draw order."""
     fids, live = bin_list(order, count, tctrl)
-    n, length = fids.shape
     dev = ctrl.device
     box = ctrl.gather(1, fids[..., None].expand(-1, -1, N_CTRL))
     tiles_y, tiles_x = tile_grid(height, width)
@@ -280,11 +279,18 @@ def tile_bins_ref(ctrl, height: int, width: int, order=None, count=None,
     hit = (reaches(box[..., K_YLO], box[..., K_YHI], y0, y1)[:, :, None]
            & reaches(box[..., K_XLO], box[..., K_XHI], x0, x1)[:, None]
            & live[:, None, None])         # (I, tiles_y, tiles_x, L)
+    return mask_words(hit)
+
+
+def mask_words(hit):
+    """(..., L) bool -> (..., ceil(L / 32)) i32: bit b of word w is entry
+    32 w + b, the kernels' mask words."""
+    length = hit.shape[-1]
     n_words = (length + 31) // 32
     hit = torch.nn.functional.pad(hit, (0, 32 * n_words - length))
-    bit = torch.ones((), dtype=torch.int64, device=dev) << torch.arange(
-        32, device=dev)
-    words = (hit.reshape(n, tiles_y, tiles_x, n_words, 32) * bit).sum(-1)
+    bit = torch.ones((), dtype=torch.int64, device=hit.device) << torch.arange(
+        32, device=hit.device)
+    words = (hit.reshape(*hit.shape[:-1], n_words, 32) * bit).sum(-1)
     # bit 31 is the sign of the i32 word
     return torch.where(words >= 2 ** 31, words - 2 ** 32, words).to(
         torch.int32)

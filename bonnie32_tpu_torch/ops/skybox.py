@@ -19,13 +19,16 @@ chooses:
     the card) and the stars onto it, and the rasterizer takes the plane as
     its background (x-ray, painter's, stars under transparent faces).
 
-Both kernels run one `sky_pixel` device function; its plain torch twin
-is `sky_plane_ref`, which evaluates the same f32 expressions in the same
-order, one torch op per rounding, from the same per-instance scalar
-table (`prep_sky_scal`) and the same constants (`sky_consts`).  The
-mountains use only + - * / and agree bit for bit; the sphere goes through
-acos, atan2, sin and pow, whose last bits differ between libraries, so a
-sky pixel may sit one 8-bit step from its twin.
+Both kernels run one `sky_tile` device function over SKY_TILE_H x
+SKY_TILE_W tiles of a frame; its plain torch twin is `sky_plane_ref`,
+which evaluates the same f32 expressions in the same order, one torch op
+per rounding, from the same per-instance scalar table (`prep_sky_scal`)
+and the same constants (`sky_consts`).  A tile draws only the mountain
+faces whose box holds one of its pixel centres (`sky_tile_faces_ref`, in
+draw order); the twin takes that restriction as an option and equals
+itself without it.  The mountains use only + - * / and agree bit for bit;
+the sphere goes through acos, atan2, sin and pow, whose last bits differ
+between libraries, so a sky pixel may sit one 8-bit step from its twin.
 
 Not carried over from the JAX package: the (NG*H, 128) lane layout, the
 zero-leaf pytree wrappers that made the config static under jit, the
@@ -44,8 +47,12 @@ from ..config import PROJ_DISTANCE, PROJ_SCALE
 from ..types import CameraArrays, FrameBuffers, resolve_device
 from . import color as col
 from .fixed import f32_to_i32
+from .raster_batch import mask_words
 
 TWO_PI = 2.0 * math.pi
+# The tile of a frame one block of the sky kernels owns (csrc/raster.cu is
+# built with it), and by which the plain culling cuts the frame.
+SKY_TILE_H, SKY_TILE_W = 16, 32
 # rows of the per-instance scalar table (prep_sky_scal)
 R_MSX, R_MSY, R_INV, R_BASIS, R_YMIN, R_YMAX, R_XMIN, R_XMAX = range(8)
 C_TIME = 9                      # column of row R_BASIS holding the time
@@ -202,9 +209,7 @@ def sky_consts(cfg) -> dict:
         haze_enabled=int(haze), haze_extent=cfg.horizon_haze.extent,
         haze_intensity=cfg.horizon_haze.intensity,
         haze_color=_rgbf(cfg.horizon_haze.color),
-        body=bodies, cloud=clouds,
-        # theta feeds only the tint and the clouds
-        need_theta=int(tint or any(c["enabled"] for c in clouds)))
+        body=bodies, cloud=clouds)
 
 
 def ray_consts(width: int, height: int) -> dict:
@@ -406,10 +411,12 @@ def _u8(x):
 
 
 def sky_plane_ref(sky: SkyTables, scal: torch.Tensor, height: int,
-                  width: int) -> torch.Tensor:
+                  width: int, tile_faces=None) -> torch.Tensor:
     """Plain torch twin of the `raster_sky` kernel (and of the sky that
     `raster_resolve` draws behind the faces): sphere + mountains of every
-    instance from its scalar table, (I, H, W) packed RGBA8 i32."""
+    instance from its scalar table, (I, H, W) packed RGBA8 i32.  With
+    `tile_faces` (the words of `sky_tile_faces_ref`), each tile draws only
+    its own faces, as the kernels do."""
     dev = scal.device
     c = _consts_on(dev)
     r = ray_consts(width, height)
@@ -440,7 +447,7 @@ def sky_plane_ref(sky: SkyTables, scal: torch.Tensor, height: int,
 
     # mountains: last covering face wins (render.rs:111-139)
     for covered, (w0, w1, w2), cols in _mountain_faces(sky, scal, height,
-                                                       width):
+                                                       width, tile_faces):
         ch = [f32_to_i32(torch.clamp(torch.trunc(
             w0 * float(cols[j]) + w1 * float(cols[3 + j])
             + w2 * float(cols[6 + j])), 0.0, 255.0)) for j in range(3)]
@@ -450,13 +457,14 @@ def sky_plane_ref(sky: SkyTables, scal: torch.Tensor, height: int,
 
 
 def _mountain_faces(sky: SkyTables, scal: torch.Tensor, height: int,
-                    width: int):
+                    width: int, tile_faces=None):
     """Per mountain face in draw order: (covered (I, H, W) bool, the
     barycentrics (w0, w1, w2), the nine corner colours), from the scalar
     table alone, as the kernels evaluate them: a face is drawn where its
     box (the triangle's bounds widened by one pixel; empty for an invalid
     or culled face) holds the pixel centre and the three barycentrics are
-    >= 0.  The JAX kernel tests the box per chunk of rows, its buffer
+    >= 0, and, with `tile_faces` given, only in the tiles whose words hold
+    its bit.  The JAX kernel tests the box per chunk of rows, its buffer
     route not at all; a covered pixel lies inside the box either way."""
     dev = scal.device
     px = torch.arange(width, device=dev, dtype=_F32)[None, None, :] + 0.5
@@ -465,6 +473,11 @@ def _mountain_faces(sky: SkyTables, scal: torch.Tensor, height: int,
         valid = (scal[:, R_YMIN, f] <= scal[:, R_YMAX, f])[:, None, None]
         if not bool(valid.any()):
             continue
+        in_tiles = True
+        if tile_faces is not None:
+            in_tiles = (((tile_faces[..., f // 32] >> (f % 32)) & 1) != 0)
+            in_tiles = in_tiles.repeat_interleave(SKY_TILE_H, 1)[:, :height]
+            in_tiles = in_tiles.repeat_interleave(SKY_TILE_W, 2)[..., :width]
         x0, x1, x2 = (scal[:, R_MSX, i][:, None, None] for i in (i0, i1, i2))
         y0, y1, y2 = (scal[:, R_MSY, i][:, None, None] for i in (i0, i1, i2))
         inv = scal[:, R_INV, f][:, None, None]
@@ -475,8 +488,38 @@ def _mountain_faces(sky: SkyTables, scal: torch.Tensor, height: int,
                for r in (R_XMIN, R_XMAX, R_YMIN, R_YMAX)]
         inside = ((px >= box[0]) & (px <= box[1])
                   & (py >= box[2]) & (py <= box[3]))
-        yield (inside & (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0),
+        yield (inside & in_tiles & (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0),
                (w0, w1, w2), cols)
+
+
+def sky_tile_grid(height: int, width: int):
+    """(tiles_y, tiles_x) of the sky kernels' tiles; the last row and
+    column may be ragged."""
+    return -(-height // SKY_TILE_H), -(-width // SKY_TILE_W)
+
+
+def sky_tile_faces_ref(sky: SkyTables, scal: torch.Tensor, height: int,
+                       width: int) -> torch.Tensor:
+    """Plain version of the sky kernels' per-tile cull: the mountain faces
+    whose box holds a pixel centre of each SKY_TILE_H x SKY_TILE_W tile,
+    as words (I, tiles_y, tiles_x, ceil(F / 32)) i32 whose bit b of word w
+    is face 32 w + b, so that the set bits are the tile's faces in draw
+    order (the counterpart of raster_batch.tile_bins_ref).  An invalid or
+    culled face has an empty box and lies in no tile."""
+    dev = scal.device
+    nf = sky.face_table.shape[0]
+    tiles_y, tiles_x = sky_tile_grid(height, width)
+    y0 = torch.arange(tiles_y, device=dev, dtype=_I32) * SKY_TILE_H
+    x0 = torch.arange(tiles_x, device=dev, dtype=_I32) * SKY_TILE_W
+    # the first and last pixel centre of each tile row and column
+    lo_y, lo_x = y0.to(_F32) + 0.5, x0.to(_F32) + 0.5
+    hi_y = torch.clamp(y0 + SKY_TILE_H, max=height).to(_F32) - 0.5
+    hi_x = torch.clamp(x0 + SKY_TILE_W, max=width).to(_F32) - 0.5
+    xmin, xmax, ymin, ymax = (scal[:, r, None, :nf] for r in (
+        R_XMIN, R_XMAX, R_YMIN, R_YMAX))                  # (I, 1, F)
+    rows = (ymax >= lo_y[None, :, None]) & (ymin <= hi_y[None, :, None])
+    cols = (xmax >= lo_x[None, :, None]) & (xmin <= hi_x[None, :, None])
+    return mask_words(rows[:, :, None] & cols[:, None])   # (I, TY, TX, F)
 
 
 def mountain_mask(sky: SkyTables, scal: torch.Tensor, height: int,

@@ -26,13 +26,15 @@ the JAX package.  In order:
      against `tile_bins_ref`, exact, for the kept faces in z-buffer and in
      painter's order, the transparent list and the x-ray list, and its
      work list, as a set, against the tiles with any bit.
-     The sky (TPU kernel K5), for the night and the sunset sky:
-     `raster_sky` and `raster_resolve` with the sky behind the faces
-     against `sky_plane_ref` / `resolve_ref` in three pixel classes —
-     pixels a face drew and pixels a mountain covers exact, the other sky
-     pixels within one 8-bit step, their share printed (acos, atan2, sin
-     and pow differ by ulps between nvcc's and torch's libraries); sky,
-     mountain and star pixels must all occur.  The gather (K7):
+     The sky (TPU kernel K5), for the night and the sunset sky, at
+     320x240 and at 150x100: `raster_sky` and `raster_resolve` with the
+     sky behind the faces against `sky_plane_ref` / `resolve_ref` in three
+     pixel classes — pixels a face drew and pixels a mountain covers
+     exact, the other sky pixels within one 8-bit step, their share
+     printed (acos, atan2, sin and pow differ by ulps between nvcc's and
+     torch's libraries); sky, mountain and star pixels must all occur;
+     the two routes equal each other; the mountain faces each sky tile
+     staged equal `sky_tile_faces_ref`.  The gather (K7):
      `select_gather` on a 32,768-entry table and N_MAIN x 240 x 320
      indices, some out of range on both sides, i32 and f32, 0 differing
      elements against its twin;
@@ -57,8 +59,12 @@ the JAX package.  In order:
      replays, so that no stage pays for the allocator's growth), and each
      kernel beside its plain twin at the main path's shapes, with the bound
      (the least time the card could take: bytes over 3.35 TB/s or f32
-     operations over 67 TFLOP/s, whichever is larger); `select_gather`
-     also beside `torch.take`, the one PyTorch call that computes it.
+     operations over 33.5e12 instructions/s, whichever is larger; the
+     operation-bound rows also at the FMA rate of 67e12 that counts a
+     fused multiply-add twice); `select_gather` also beside `torch.take`,
+     the one PyTorch call that computes it.  The sky also without its
+     mountain faces and with the gradient alone, and the mean and maximum
+     number of mountain faces a sky tile stages.
      A visibility or composite time is that of everything its wrapper
      launches (`raster_bin` + the consumer); `raster_bin` alone is timed
      behind a long matrix product, so that its launches are queued before
@@ -87,9 +93,14 @@ SEED = 0
 PLAIN_CHUNK = 128      # instances per plain-twin call when timing at N_MAIN
 RAGGED = (100, 150)    # a frame (rows, columns) that no tile shape divides
 
-# The card's peaks (NVIDIA H100 SXM data sheet, at its 700 W limit)
+# The card's peaks (NVIDIA H100 SXM, at its 700 W limit).  The f32 rate
+# is that of uncontracted instructions: 132 SMs x 128 lanes x 1.98 GHz.
+# The kernels are built with -fmad=false, so each add or multiply counted
+# below is one instruction; the data sheet's 67 TFLOP/s counts a fused
+# multiply-add as two operations (F32_FMA_OPS_S, printed once beside).
 HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
+F32_OPS_S = 33.5e12
+F32_FMA_OPS_S = 67e12
 # f32 operations per pixel, counted from the kernels' expressions: the
 # edge functions, barycentrics, coverage compares and interpolated 1/z of
 # one face at one pixel of its clipped bbox; the pixel pipeline of one
@@ -99,22 +110,28 @@ F32_OPS_S = 67e12
 # this run's data needs (keyed UVs and overdraw not counted).
 OPS_COVER = 20
 OPS_PIPELINE = 80
-# The sky, per pixel it shows on: the view ray (four divides by
-# constants, a square root, three divides, nine multiply-adds); each
-# acos, atan2 or sine counted as 20 operations and each pow as 40; the
-# gradient's divide, clamp and three-channel lerp; tint, haze and each
-# cloud layer where the sky has them; each enabled body's dot product and
-# gate on every pixel (the pixels inside a glow are not counted: the
-# bound stays below what the data needs); a mountain face's barycentrics,
+# The sky, per pixel it shows on and no mountain covers: the view ray
+# (a square root, three divides, nine multiplies and six adds; the
+# column's and row's terms are per tile), acos, the gradient's divide,
+# clamp and three-channel lerp, and each enabled body's dot product and
+# gate.  Then, on the pixels this run's data needs them (counted from the
+# rays of the plain version): the azimuth (atan2) where the tint or a
+# cloud layer reads it, the tint within its horizon range and spread, the
+# haze within its extent, a body's acos, pow and lerps within its glow, a
+# cloud layer's six sines inside its band and its pow where the noise
+# reaches the threshold.  Each acos, atan2 or sine counted as 20
+# operations and each pow as 40; a mountain face's barycentrics,
 # compares and colour at each pixel of its clipped bbox.
 OPS_TRANSCENDENTAL = 20
 OPS_POW = 40
-OPS_SKY_RAY = 32
+OPS_SKY_RAY = 28
 OPS_SKY_GRADIENT = 18
 OPS_SKY_TINT = 28
 OPS_SKY_HAZE = 22
 OPS_SKY_BODY_GATE = 6
-OPS_SKY_CLOUD = 6 * OPS_TRANSCENDENTAL + OPS_POW + 40
+OPS_SKY_GLOW = OPS_TRANSCENDENTAL + OPS_POW + 30
+OPS_SKY_CLOUD_NOISE = 6 * OPS_TRANSCENDENTAL + 20
+OPS_SKY_CLOUD_POW = OPS_POW + 20
 OPS_SKY_FACE = 25
 GATHER_TABLE = 32768   # "<= 32k entries", the JAX module's own size
 
@@ -538,40 +555,58 @@ def run(dev):
         sst = rollout.initial_states(lv, spawn, N_CHECK, device=dev)
         sst = stp.tick(sst, e.grid, e.params, acts_check, 1.0 / 60.0)
         cams = stp.character_camera(sst, e.params)
-        scal = sky_ops.prep_sky_scal(e.sky, cams, WIDTH, HEIGHT)
-        k_sky = _cuda.raster_sky(e.sky, scal, HEIGHT, WIDTH)
-        p_sky = sky_ops.sky_plane_ref(e.sky, scal, HEIGHT, WIDTH)
-        sprep = prep_for(e, surf_for(e, sst, game), game)
-        svis = _cuda.raster_visibility(sprep, e.flat.atlas, HEIGHT, WIDTH)
-        bg = sky_ops.SkyBackground(e.sky, scal)
-        k_fused = _cuda.raster_resolve(sprep, e.flat.atlas, *svis[1:],
-                                       shading, bg)
-        p_fused = rb.resolve_ref(sprep, e.flat.atlas, *svis[1:], shading, bg)
-        k_over = _cuda.raster_resolve(sprep, e.flat.atlas, *svis[1:],
-                                      shading, k_sky)
-        starred = sky_ops.scatter_stars(k_fused, svis[0], e.sky, cams,
-                                        time=e.sky.time)
-        torch.cuda.synchronize()
-        mtn = sky_ops.mountain_mask(e.sky, scal, HEIGHT, WIDTH)
-        none = torch.zeros_like(mtn)
-        n_stars = int((starred != k_fused).sum())
-        sky_share[sky_name, "plane"] = sky_classes(
-            f"raster_sky vs plain, {sky_name} sky, N={N_CHECK}", k_sky,
-            p_sky, dict(face=none, mtn=mtn, blended=none, stars=n_stars), 0)
-        sky_share[sky_name, "fused"] = sky_classes(
-            f"raster_resolve + sky vs plain, {sky_name} sky, N={N_CHECK}",
-            k_fused, p_fused, dict(face=svis[1] >= 0, mtn=mtn, blended=none,
+        for hw in ((HEIGHT, WIDTH), RAGGED):
+            size = f"{hw[1]}x{hw[0]}"
+            scal = sky_ops.prep_sky_scal(e.sky, cams, hw[1], hw[0])
+            k_sky, k_words = _cuda.raster_sky(e.sky, scal, *hw,
+                                              want_tiles=True)
+            p_sky = sky_ops.sky_plane_ref(e.sky, scal, *hw)
+            p_words = sky_ops.sky_tile_faces_ref(e.sky, scal, *hw)
+            sprep = prep_for(e, surf_for(e, sst, game, hw), game, hw)
+            svis = _cuda.raster_visibility(sprep, e.flat.atlas, *hw)
+            bg = sky_ops.SkyBackground(e.sky, scal)
+            k_fused = _cuda.raster_resolve(sprep, e.flat.atlas, *svis[1:],
+                                           shading, bg)
+            p_fused = rb.resolve_ref(sprep, e.flat.atlas, *svis[1:], shading,
+                                     bg)
+            k_over = _cuda.raster_resolve(sprep, e.flat.atlas, *svis[1:],
+                                          shading, k_sky)
+            starred = sky_ops.scatter_stars(k_fused, svis[0], e.sky, cams,
+                                            time=e.sky.time)
+            torch.cuda.synchronize()
+            mtn = sky_ops.mountain_mask(e.sky, scal, *hw)
+            none = torch.zeros_like(mtn)
+            n_stars = int((starred != k_fused).sum())
+            word_diff = int((k_words != p_words).sum())
+            print(f"raster_sky's tile faces vs sky_tile_faces_ref, "
+                  f"{sky_name} sky, {size}, tiles {sky_ops.SKY_TILE_W}x"
+                  f"{sky_ops.SKY_TILE_H}: {word_diff} differing words")
+            if word_diff:
+                _fail(f"{sky_name} sky, {size}: the kernel's tile faces "
+                      f"disagree with sky_tile_faces_ref")
+            sky_share[sky_name, "plane", size] = sky_classes(
+                f"raster_sky vs plain, {sky_name} sky, N={N_CHECK} {size}",
+                k_sky, p_sky, dict(face=none, mtn=mtn, blended=none,
                                    stars=n_stars), 0)
-        plane_vs_fused = int((k_over != k_fused).sum())
-        print(f"resolve over the raster_sky plane vs resolve with the sky "
-              f"fused, {sky_name} sky: {plane_vs_fused} differing pixels")
-        if plane_vs_fused:
-            _fail("the two entry points of the sky disagree")
-        if e.sky.stars_enabled and n_stars == 0:
-            _fail(f"{sky_name} sky: no star pixel was drawn")
-        err[f"raster_sky_{sky_name}"] = int(channel_step(k_sky, p_sky).max())
-        err[f"raster_resolve_sky_{sky_name}"] = int(
-            channel_step(k_fused, p_fused).max())
+            sky_share[sky_name, "fused", size] = sky_classes(
+                f"raster_resolve + sky vs plain, {sky_name} sky, "
+                f"N={N_CHECK} {size}", k_fused, p_fused,
+                dict(face=svis[1] >= 0, mtn=mtn, blended=none,
+                     stars=n_stars), 0)
+            plane_vs_fused = int((k_over != k_fused).sum())
+            print(f"resolve over the raster_sky plane vs resolve with the "
+                  f"sky fused, {sky_name} sky, {size}: {plane_vs_fused} "
+                  f"differing pixels")
+            if plane_vs_fused:
+                _fail("the two entry points of the sky disagree")
+            if e.sky.stars_enabled and n_stars == 0:
+                _fail(f"{sky_name} sky: no star pixel was drawn")
+            err[f"raster_sky_{sky_name}"] = max(
+                err.get(f"raster_sky_{sky_name}", 0),
+                int(channel_step(k_sky, p_sky).max()))
+            err[f"raster_resolve_sky_{sky_name}"] = max(
+                err.get(f"raster_resolve_sky_{sky_name}", 0),
+                int(channel_step(k_fused, p_fused).max()))
     phase_done("sky kernels vs plain")
 
     # ---- K7: select_gather vs its twin and torch.take ----
@@ -866,6 +901,13 @@ def run(dev):
     def part(tup, sl):
         return type(tup)(*(x[sl] for x in tup))
 
+    def popcount(words):
+        x = words.long() & 0xFFFFFFFF
+        x = x - ((x >> 1) & 0x55555555)
+        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+        x = (x + (x >> 4)) & 0x0F0F0F0F
+        return ((x * 0x01010101) >> 24) & 0xFF
+
     # the kernel composites in place: it is timed on scratch planes (the
     # same work every launch), the plain twins on the unchanged ones
     base = color.clone()
@@ -923,27 +965,57 @@ def run(dev):
         WIDTH, HEIGHT)
     sbg = sky_ops.SkyBackground(night, sscal)
     fused = "raster_resolve_sky"
+    # the sky's launches wait behind a matrix product, so that the host's
+    # time per call (the SkyParams struct is filled per call) never shows
     ms[fused] = kernel_ms(lambda: _cuda.raster_resolve(
-        sprep, satlas, *splanes[1:], shading, sbg))
+        sprep, satlas, *splanes[1:], shading, sbg), queued=True)
     resolve_const_ms = kernel_ms(lambda: _cuda.raster_resolve(
-        sprep, satlas, *splanes[1:], shading, 0))
+        sprep, satlas, *splanes[1:], shading, 0), queued=True)
     plain[fused] = chunked_plain_ms(lambda sl: rb.resolve_ref(
         part(sprep, sl), satlas, *(p[sl] for p in splanes[1:]), shading,
         sky_ops.SkyBackground(night, sscal[sl])))
     ms[ksky] = kernel_ms(lambda: _cuda.raster_sky(night, sscal, HEIGHT,
-                                                  WIDTH))
+                                                  WIDTH), queued=True)
     plain[ksky] = chunked_plain_ms(lambda sl: sky_ops.sky_plane_ref(
         night, sscal[sl], HEIGHT, WIDTH))
     ms["raster_sky_sunset"] = kernel_ms(lambda: _cuda.raster_sky(
-        sunset, sun_scal, HEIGHT, WIDTH))
+        sunset, sun_scal, HEIGHT, WIDTH), queued=True)
     plain["raster_sky_sunset"] = chunked_plain_ms(
         lambda sl: sky_ops.sky_plane_ref(sunset, sun_scal[sl], HEIGHT,
                                          WIDTH))
-    # where the sky's time goes: the same launches without the mountains
-    bare_ms = {name: kernel_ms(lambda sk=sk, sc=sc: _cuda.raster_sky(
-        sk._replace(face_table=sk.face_table[:0]), sc, HEIGHT, WIDTH))
-        for name, sk, sc in (("night", night, sscal),
-                             ("sunset", sunset, sun_scal))}
+
+    # where the sky's time goes: the same launches without the mountains,
+    # and with neither the mountains nor any sphere feature but the
+    # gradient (the view ray, acos, the gradient and the stores)
+    def gradient_only(sky):
+        sb = sky.skybox
+        def off(x):
+            return dataclasses.replace(x, enabled=False)
+        return sky._replace(face_table=sky.face_table[:0],
+                            skybox=dataclasses.replace(
+                                sb, sun=off(sb.sun), moon=off(sb.moon),
+                                cloud_layers=[], horizon_haze=off(
+                                    sb.horizon_haze),
+                                horizontal_tint_enabled=False))
+
+    bare_ms, grad_ms = {}, {}
+    for name, sk, sc in (("night", night, sscal),
+                         ("sunset", sunset, sun_scal)):
+        bare = sk._replace(face_table=sk.face_table[:0])
+        grad = gradient_only(sk)
+        bare_ms[name] = kernel_ms(lambda b=bare, c=sc: _cuda.raster_sky(
+            b, c, HEIGHT, WIDTH), queued=True)
+        grad_ms[name] = kernel_ms(lambda g=grad, c=sc: _cuda.raster_sky(
+            g, c, HEIGHT, WIDTH), queued=True)
+    # the mountain faces each sky tile stages
+    tile_faces = {}
+    for name, sk, sc in (("night", night, sscal),
+                         ("sunset", sunset, sun_scal)):
+        per_tile = popcount(_cuda.raster_sky(sk, sc, HEIGHT, WIDTH,
+                                             want_tiles=True)[1]).sum(-1)
+        tile_faces[name] = (float(per_tile.float().mean()),
+                            int(per_tile.max()),
+                            float((per_tile == 0).float().mean()))
     ms[kgather] = kernel_ms(lambda: tg.select_gather(gtables["i32"], gidx))
     plain[kgather] = kernel_ms(lambda: tg.select_gather_ref(gtables["i32"],
                                                             gidx))
@@ -983,9 +1055,12 @@ def run(dev):
                 & (t.tctrl[..., rb.T_EA] != 0)).to(torch.int32)
 
     def bound(n_bytes, n_ops):
+        """(ms, what binds it, ms had f32 operations run at the FMA
+        rate)."""
         t_bytes, t_ops = n_bytes / HBM_BYTES_S, n_ops / F32_OPS_S
         return (max(t_bytes, t_ops) * 1e3,
-                "bytes" if t_bytes >= t_ops else "operations")
+                "bytes" if t_bytes >= t_ops else "operations",
+                max(t_bytes, n_ops / F32_FMA_OPS_S) * 1e3)
 
     atlas_b = nbytes(tatlas.data, tatlas.offset, tatlas.width,
                      tatlas.height)
@@ -1047,16 +1122,70 @@ def run(dev):
     # its clipped bbox.  Fused into resolve, the launch's bound is
     # resolve's own terms plus the sky's operations on the pixels no face
     # drew.
-    def sky_ops_per_pixel(sky):
+    def sky_work(sky, scal, shows=None):
+        """(pixels the sky shows on, those of them no mountain covers,
+        the sphere's operations on those), from the rays of the plain
+        version, PLAIN_CHUNK instances at a time; `shows` is an (N, H, W)
+        mask, or None for the whole plane."""
         k = sky_ops.sky_consts(sky.skybox)
-        n = OPS_SKY_RAY + OPS_TRANSCENDENTAL + OPS_SKY_GRADIENT
-        if k["need_theta"]:
-            n += OPS_TRANSCENDENTAL + 2
-        n += OPS_SKY_TINT * k["tint_enabled"]
-        n += OPS_SKY_HAZE * k["haze_enabled"]
-        n += OPS_SKY_BODY_GATE * sum(b["enabled"] for b in k["body"])
-        n += OPS_SKY_CLOUD * sum(c["enabled"] for c in k["cloud"])
-        return n
+        r = sky_ops.ray_consts(WIDTH, HEIGHT)
+        xs = torch.arange(WIDTH, device=dev, dtype=torch.float32)
+        ys = torch.arange(HEIGHT, device=dev, dtype=torch.float32)
+        ndc_x = ((xs + 0.5 - r["half_w"]) / r["vs"] / r["usq"])[None, None]
+        ndc_y = ((ys + 0.5 - r["half_h"]) / r["vs"] / r["usq"])[None, :,
+                                                                 None]
+        norm = torch.sqrt(ndc_x * ndc_x + ndc_y * ndc_y + 1.0)
+        cx, cy, cz = ndc_x / norm, ndc_y / norm, 1.0 / norm
+        n_bodies = sum(bd["enabled"] for bd in k["body"])
+        n_shown = n_sphere = n_ops = 0
+        for s in range(0, N_MAIN, PLAIN_CHUNK):
+            sl = slice(s, s + PLAIN_CHUNK)
+            sc = scal[sl]
+            free = ~sky_ops.mountain_mask(sky, sc, HEIGHT, WIDTH)
+            if shows is not None:
+                free &= shows[sl]
+            n_shown += free.numel() if shows is None else int(shows[sl].sum())
+            n_sphere += int(free.sum())
+            b = [sc[:, sky_ops.R_BASIS, j][:, None, None] for j in range(10)]
+            wx = cx * b[0] + cy * b[3] + cz * b[6]
+            wy = cx * b[1] + cy * b[4] + cz * b[7]
+            wz = cx * b[2] + cy * b[5] + cz * b[8]
+            v = torch.acos(wy.clamp(-1.0, 1.0)) / np.pi
+            theta = torch.remainder(torch.atan2(wz, wx), 2 * np.pi)
+            dist = (v - k["horizon"]).abs()
+            ops = (OPS_SKY_RAY + OPS_TRANSCENDENTAL + OPS_SKY_GRADIENT
+                   + OPS_SKY_BODY_GATE * n_bodies) * free.sum()
+            azimuth = torch.zeros_like(free)
+            if k["tint_enabled"]:
+                diff = (theta - k["tint_dir"]).abs()
+                diff = torch.where(diff > np.pi, 2 * np.pi - diff, diff)
+                azimuth |= dist < 0.3
+                ops += OPS_SKY_TINT * (free & (dist < 0.3)
+                                       & (diff < k["tint_spread"])).sum()
+            if k["haze_enabled"]:
+                ops += OPS_SKY_HAZE * (free & (dist < k["haze_extent"])).sum()
+            for bd in k["body"]:
+                if bd["enabled"]:
+                    cosd = wx * bd["dx"] + wy * bd["dy"] + wz * bd["dz"]
+                    ops += OPS_SKY_GLOW * (free & (cosd > bd["cos_gate"])).sum()
+            for cl in k["cloud"]:
+                if not cl["enabled"]:
+                    continue
+                inside = free & (v >= cl["vmin"]) & (v <= cl["vmax"])
+                azimuth |= inside
+                th_s = theta + b[9] * cl["scroll_speed"]
+                raw = (torch.sin(torch.sin(th_s * cl["f1"] + cl["p1"])
+                                 * cl["s1"] + v * 50.0) * 0.5
+                       + torch.sin(torch.sin(th_s * cl["f2"] + cl["p2"])
+                                   * cl["s2"] + v * 120.0) * 0.3
+                       + torch.sin(torch.sin(th_s * cl["f3"] + cl["p3"])
+                                   * cl["s3"] + v * 200.0) * 0.2 + 0.5)
+                ops += OPS_SKY_CLOUD_NOISE * inside.sum()
+                ops += OPS_SKY_CLOUD_POW * (inside
+                                            & (raw >= cl["threshold"])).sum()
+            ops += (OPS_TRANSCENDENTAL + 2) * (free & azimuth).sum()
+            n_ops += int(ops)
+        return n_shown, n_sphere, n_ops
 
     def mountain_bbox_area(sky, scal):
         nf = sky.face_table.shape[0]
@@ -1067,29 +1196,15 @@ def run(dev):
         return int(((hi_y - lo_y).clamp(min=0)
                     * (hi_x - lo_x).clamp(min=0)).sum())
 
-    def sky_pixels(sky, scal, shows=None):
-        """(pixels the sky shows on, those of them no mountain covers);
-        `shows` is an (N, H, W) mask, or None for the whole plane."""
-        n_shown = n_sphere = 0
-        for s in range(0, N_MAIN, PLAIN_CHUNK):
-            sl = slice(s, s + PLAIN_CHUNK)
-            free = ~sky_ops.mountain_mask(sky, scal[sl], HEIGHT, WIDTH)
-            if shows is not None:
-                free &= shows[sl]
-            n_shown += free.numel() if shows is None else int(shows[sl].sum())
-            n_sphere += int(free.sum())
-        return n_shown, n_sphere
-
-    def sky_bound(sky, scal, px, extra_bytes=0, extra_ops=0):
-        n_shown, n_sphere = px
+    def sky_bound(sky, scal, work, extra_bytes=0, extra_ops=0):
+        n_shown, _, n_ops = work
         return bound(4 * n_shown + nbytes(scal, sky.face_table)
                      + extra_bytes,
-                     sky_ops_per_pixel(sky) * n_sphere
-                     + OPS_SKY_FACE * mountain_bbox_area(sky, scal)
+                     n_ops + OPS_SKY_FACE * mountain_bbox_area(sky, scal)
                      + extra_ops)
 
-    sky_px = {ksky: sky_pixels(night, sscal),
-              "raster_sky_sunset": sky_pixels(sunset, sun_scal)}
+    sky_px = {ksky: sky_work(night, sscal),
+              "raster_sky_sunset": sky_work(sunset, sun_scal)}
     bounds[ksky] = sky_bound(night, sscal, sky_px[ksky])
     bounds["raster_sky_sunset"] = sky_bound(sunset, sun_scal,
                                             sky_px["raster_sky_sunset"])
@@ -1103,7 +1218,7 @@ def run(dev):
     # texel is keyed out): over a word of alpha 0, the pixels still at 0
     shows = ((_cuda.raster_resolve(sprep, satlas, *splanes[1:], shading, 0)
               >> 24) & 255) == 0
-    sky_px[fused] = sky_pixels(night, sscal, shows)
+    sky_px[fused] = sky_work(night, sscal, shows)
     n_face_px = plane - sky_px[fused][0]
     del shows
     satlas_b = nbytes(satlas.data, satlas.offset, satlas.width,
@@ -1119,25 +1234,26 @@ def run(dev):
           f"over a constant word {resolve_const_ms:.3f} ms; "
           f"{(plane - n_face_px) / plane:.3f} of the pixels show the sky "
           f"(N={N_MAIN}, open-air level) {card}")
-    print("pixels the sky shows on, and those of them that evaluate the "
-          "sphere (no mountain covers them): "
-          + ", ".join(f"{k} {n} / {m}" for k, (n, m) in sky_px.items())
+    print("pixels the sky shows on, those of them that evaluate the "
+          "sphere (no mountain covers them), and the sphere's operations "
+          "a sphere pixel: "
+          + ", ".join(f"{k} {n} / {m}, {o / max(m, 1):.1f}"
+                      for k, (n, m, o) in sky_px.items())
           + f" (N={N_MAIN})")
     print(f"raster_sky without its mountain faces: night "
           f"{bare_ms['night']:.3f} ms (with: {ms[ksky]:.3f}), sunset "
           f"{bare_ms['sunset']:.3f} ms (with: "
-          f"{ms['raster_sky_sunset']:.3f}) {card}")
+          f"{ms['raster_sky_sunset']:.3f}); gradient only, no mountain "
+          f"faces: night {grad_ms['night']:.3f} ms, sunset "
+          f"{grad_ms['sunset']:.3f} ms {card}")
+    print("mountain faces per sky tile (" + f"{sky_ops.SKY_TILE_W}x"
+          f"{sky_ops.SKY_TILE_H}, N={N_MAIN}): " + ", ".join(
+              f"{k} sky mean {m:.3f} max {x}, tiles with none {z:.3f}"
+              for k, (m, x, z) in tile_faces.items()))
     print(f"{kgather}: i32 {ms[kgather]:.3f} ms, f32 {gather_f32_ms:.3f} ms, "
           f"torch.take {library[kgather]:.3f} ms, plain "
           f"{plain[kgather]:.3f} ms, bound {bounds[kgather][0]:.3f} ms "
           f"({gidx.numel()} indices, {GATHER_TABLE}-entry table) {card}")
-    def popcount(words):
-        x = words.long() & 0xFFFFFFFF
-        x = x - ((x >> 1) & 0x55555555)
-        x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
-        x = (x + (x >> 4)) & 0x0F0F0F0F
-        return ((x * 0x01010101) >> 24) & 0xFF
-
     for name, (ctrl, kw) in lists_main.items():
         per_tile = popcount(_cuda.raster_bin(ctrl, HEIGHT, WIDTH,
                                              **kw)[0]).sum(-1)
@@ -1183,6 +1299,12 @@ def run(dev):
               + (f"; the kernel's time includes its raster_bin launch, "
                  f"alone {bin_ms[with_bin[name]]:.3f} ms"
                  if name in with_bin else "") + f" {card}")
+
+    print(f"bounds bound by operations, read at the FMA rate "
+          f"{F32_FMA_OPS_S:.3g}/s as before: " + ", ".join(
+              f"{name} {bounds[name][2]:.3f} ms (now {bounds[name][0]:.3f})"
+              for name in ms if bounds[name][1] == "operations")
+          + f" {card}")
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],

@@ -16,7 +16,10 @@ ragged.  The sky
 (`raster_sky`, and `raster_resolve` with the sky behind the faces) is
 exact on face and mountain pixels and within one 8-bit step on the other
 sky pixels (acos, atan2, sin and pow differ by ulps between nvcc's and
-torch's libraries); `select_gather` of csrc/gather.cu is exact.
+torch's libraries), at 320x240 and at 150x100, and the mountain faces
+each sky tile stages equal `sky_tile_faces_ref`, also for a face list
+longer than one round of the kernel's cull; `select_gather` of
+csrc/gather.cu is exact.
 """
 
 import numpy as np
@@ -427,15 +430,23 @@ def sky_env(request, env):
                                          device=dev)
 
 
-def test_sky_kernels_match_twin(sky_env):
-    from bonnie32_tpu_torch.ops import _cuda
+def _sky_cams(sky_env):
     level, dev, e = sky_env
-    settings = RasterSettings.game()
     states = rollout.initial_states(level, ts.spawn_point(level), N,
                                     device=dev)
     states = stp.tick(states, e.grid, e.params,
                       _actions(np.random.default_rng(4), dev), 1.0 / 60.0)
-    cams = stp.character_camera(states, e.params)
+    return stp.character_camera(states, e.params)
+
+
+@pytest.mark.parametrize("hw", [(H, W), RAGGED],
+                         ids=lambda hw: f"{hw[1]}x{hw[0]}")
+def test_sky_kernels_match_twin(sky_env, hw):
+    from bonnie32_tpu_torch.ops import _cuda
+    H, W = hw
+    level, dev, e = sky_env
+    settings = RasterSettings.game()
+    cams = _sky_cams(sky_env)
     scal = sky_ops.prep_sky_scal(e.sky, cams, W, H)
     kern = _cuda.raster_sky(e.sky, scal, H, W)
     plain = sky_ops.sky_plane_ref(e.sky, scal, H, W)
@@ -464,6 +475,34 @@ def test_sky_kernels_match_twin(sky_env):
     assert int(_step(kc, pc).max()) <= 1
     # one sky function behind both entry points: fused == plane route
     assert torch.equal(kc, over)
+
+
+@pytest.mark.parametrize("deep", [False, True], ids=["faces", "repeated"])
+def test_sky_tile_faces_match_plain(sky_env, deep):
+    """The faces each sky tile stages, as the kernel reports them, equal
+    `sky_tile_faces_ref`; with the faces repeated past 256 (more than one
+    round of the cull: the sunset's 94 three times, the night's 30 nine
+    times) the plane still equals the twin on mountain pixels, where the
+    last of a pixel's covering copies decides its colour."""
+    from bonnie32_tpu_torch.ops import _cuda
+    _, _, e = sky_env
+    nf = e.sky.face_table.shape[0]
+    sky = ts.repeated_sky_faces(e.sky, -(-257 // nf) if deep else 1)
+    cams = _sky_cams(sky_env)
+    for h, w in ((H, W), RAGGED):
+        scal = sky_ops.prep_sky_scal(sky, cams, w, h)
+        plane, words = _cuda.raster_sky(sky, scal, h, w, want_tiles=True)
+        want = sky_ops.sky_tile_faces_ref(sky, scal, h, w)
+        mtn = sky_ops.mountain_mask(sky, scal, h, w)
+        twin = sky_ops.sky_plane_ref(sky, scal, h, w)
+        torch.cuda.synchronize()
+        assert torch.equal(words, want)
+        assert torch.equal(plane[mtn], twin[mtn])
+        assert int(_step(plane, twin).max()) <= 1
+        x = words.long() & 0xFFFFFFFF
+        per_tile = sum(((x >> b) & 1) for b in range(32)).sum(-1)
+        assert int(per_tile.max()) > 1 and bool((per_tile == 0).any())
+        assert sky.face_table.shape[0] > 256 or not deep
 
 
 @pytest.mark.parametrize("transparent", [False, True])

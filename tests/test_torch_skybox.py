@@ -172,7 +172,7 @@ def test_sky_without_mountains_or_clouds():
     assert out.color.shape == (3, 24, 32) and not out.depth.any()
     consts = tsky.sky_consts(sb)
     assert [c["enabled"] for c in consts["cloud"]] == [0, 0]
-    assert not consts["need_theta"] and not consts["tint_enabled"]
+    assert not consts["tint_enabled"]
 
 
 # ---- the sky function ----
@@ -293,7 +293,7 @@ def test_sky_params_hold_every_constant(name):
     k = tsky.sky_consts(sb)
     p = _cuda.sky_params(sb, W, H)
     assert p.horizon == np.float32(k["horizon"])
-    assert p.need_theta == k["need_theta"]
+    assert p.tint_enabled == k["tint_enabled"]
     assert (p.half_w, p.half_h) == (W / 2.0, H / 2.0)
     for slot, body in zip(p.body, k["body"]):
         assert slot.enabled == body["enabled"]

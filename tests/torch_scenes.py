@@ -121,6 +121,22 @@ def sky_config(S, name="night"):
     raise ValueError(f"unknown sky {name!r}")
 
 
+def repeated_sky_faces(sky, k):
+    """The port's SkyTables `sky` with its mountain faces k times over in
+    draw order, copy j with its corner colours rotated by j corners (so
+    that the order in which a pixel's covering copies are drawn shows),
+    and its scalar table widened to hold them: a face list longer than
+    one round of the sky kernels' cull."""
+    nf = sky.face_table.shape[0]
+    ft = sky.face_table.repeat(k, 1)
+    for j in range(1, k):
+        rows = ft[j * nf:(j + 1) * nf]
+        rows[:, 3:] = rows[:, 3:].roll(3 * j, dims=1)
+    v = max(sky.mtn_dirs.shape[0], k * nf, 10)
+    return sky._replace(face_table=ft.contiguous(),
+                        vpad=max(8, -(-v // 8) * 8))
+
+
 def open_air_level(L, S, sky="night"):
     """The Cave-size level without its ceiling and with the perimeter
     walls lowered, under the sky `sky_config(S, sky)`."""
