@@ -17,8 +17,9 @@
 //                      black colour-key test, strict `izi > depth` merge;
 //                      with `painters` set, the painter's merge (`better =
 //                      cov`, :941) and a cleared depth plane (:1538-1549).
-//   raster_resolve     phase 2 (_run_phase2): winner attributes, affine UV,
-//                      wrap, texel fetch, key fixups, 5->8 expand, vertex-
+//   raster_resolve     phase 2 (_run_phase2): winner attributes, affine or
+//                      perspective-correct UV, wrap, texel fetch, key
+//                      fixups, 5->8 expand, vertex-
 //                      colour modulate, shade, Bayer dither, RGB555
 //                      quantize, RGBA8 pack; where no face drew, the
 //                      background: a constant word, a plane, or the sky.
@@ -118,6 +119,18 @@
 // wgmma, TMA, warp-specialised pipelines and fusing the kernels are later
 // work.
 //
+// Perspective-correct UVs (affine_textures off, render.rs:1563-1579) are a
+// template parameter of the visibility (keyed coverage, :1003-1013), resolve
+// (:1249-1262) and composite kernels, as the painter's merge, the z-test and
+// the background kind are, so the affine instantiations carry none of it:
+// u/z and v/z interpolated over the corners' 1/z, divided by the pixel's
+// interpolated 1/z (1 where that is 0), an IEEE divide each.  The 1/z is the
+// face's own at the pixel; for resolve, the winner's, recomputed from the
+// winner's barycentrics and attribute row, which is bit for bit the value
+// phase 1 merged into the depth plane (the same expression on the same
+// inputs), so the painter's merge, whose depth plane comes back cleared,
+// needs no hand-off.
+//
 // Numerics: every float expression keeps the JAX operation order and the
 // build passes -fmad=false, because the TPU never contracts a*b+c into an
 // FMA.  Coverage is the three-compare chain (NaN fails it, as jnp.minimum's
@@ -179,6 +192,16 @@ constexpr int VIS_THREADS = TILE_W * (TILE_H / VIS_ROWS);
 // itself the compiler takes 64 for the z-buffer merge, 16 tiles an SM, and
 // the kernel is 6% slower; capped at 40 it spills and is 20% slower
 constexpr int VIS_MIN_BLOCKS = 1280 / VIS_THREADS;
+// The perspective instantiations divide in the keyed-coverage test.  An
+// IEEE divide's slow path is a call, across which the merge's live values
+// spill under the 48-register cap (112 bytes a thread; the z-buffer kernel
+// took 1.02 ms against the affine one's 0.75); capped at 64 registers
+// (1024 threads an SM) they do not spill and take 0.85 ms, at 80 (768)
+// 0.97 (PERF.md; scripts/torch_tile_sweep.py measures other caps).
+#ifndef RASTER_VIS_PERSP_THREADS
+#define RASTER_VIS_PERSP_THREADS 1024
+#endif
+constexpr int VIS_MIN_BLOCKS_PERSP = RASTER_VIS_PERSP_THREADS / VIS_THREADS;
 constexpr int COMP_THREADS = TILE_W * (TILE_H / COMP_ROWS);
 static_assert(TILE_H % VIS_ROWS == 0 && VIS_THREADS % 32 == 0 &&
                   VIS_THREADS <= 1024 && TILE_H % COMP_ROWS == 0 &&
@@ -217,6 +240,18 @@ __device__ __forceinline__ int texel_index(const int* tex_off,
 __device__ __forceinline__ float interp3(float bx, float by, float bz,
                                          float a0, float a1, float a2) {
   return (bx * a0 + by * a1) + bz * a2;
+}
+
+// Perspective-correct texture coordinate (render.rs:1563-1579): the
+// corners' t/z interpolated, over the pixel's interpolated 1/z `izi` (1
+// where that is 0); `iz0..2` are the corners' 1/z.  The divide is IEEE
+// round-to-nearest (no fast-math), as the reference's exact division.
+__device__ __forceinline__ float persp3(float bx, float by, float bz,
+                                        float t0, float t1, float t2,
+                                        float iz0, float iz1, float iz2,
+                                        float izi) {
+  const float safe = izi == 0.0f ? 1.0f : izi;
+  return (((bx * t0) * iz0 + (by * t1) * iz1) + (bz * t2) * iz2) / safe;
 }
 
 // Rust `f32 as u8`: truncate, saturate, NaN -> 0.
@@ -770,9 +805,11 @@ __device__ __forceinline__ int next_batch(const int* __restrict__ words,
 }
 
 // Phase 1.  Grid: (tiles_x, tiles_y, instances); `bins` from bin_kernel
-// over (order, count).
-template <bool PAINTERS>
-__global__ void __launch_bounds__(VIS_THREADS, VIS_MIN_BLOCKS)
+// over (order, count).  PERSP: keyed faces fetch their key texel at the
+// perspective-correct UV.
+template <bool PAINTERS, bool PERSP>
+__global__ void __launch_bounds__(VIS_THREADS,
+                                  PERSP ? VIS_MIN_BLOCKS_PERSP : VIS_MIN_BLOCKS)
 visibility_kernel(const int* __restrict__ order,
                   const int* __restrict__ ctrl,
                   const float* __restrict__ attrs,
@@ -860,8 +897,15 @@ visibility_kernel(const int* __restrict__ order,
         if (cov && meta.y) {
           // keyed faces: black texels drop out of coverage before the merge
           const float4 e3 = s_f[f][3];  // u1, vv1, u2, vv2
-          const float u = interp3(bcx, bcy, bcz, e2.z, e3.x, e3.z);
-          const float v = interp3(bcx, bcy, bcz, e2.w, e3.y, e3.w);
+          float u, v;
+          if (PERSP) {
+            const float iz = (bcx * e1.w + bcy * e2.x) + bcz * e2.y;
+            u = persp3(bcx, bcy, bcz, e2.z, e3.x, e3.z, e1.w, e2.x, e2.y, iz);
+            v = persp3(bcx, bcy, bcz, e2.w, e3.y, e3.w, e1.w, e2.x, e2.y, iz);
+          } else {
+            u = interp3(bcx, bcy, bcz, e2.z, e3.x, e3.z);
+            v = interp3(bcx, bcy, bcz, e2.w, e3.y, e3.w);
+          }
           const int texel =
               tex_data[texel_index(tex_off, tex_w, tex_h, meta.x, u, v)];
           cov = (texel & 0x7FFF) != 0;
@@ -925,15 +969,27 @@ sky_kernel(const float* __restrict__ skyscal,
 }
 
 // The colour word of the pixel whose winner is face row `a`; false where
-// its texel is keyed out and the background shows.
+// its texel is keyed out and the background shows.  PERSP: the UV is
+// perspective-correct over the winner's 1/z at the pixel, the value phase 1
+// merged (same expression, same barycentrics).
+template <bool PERSP>
 __device__ __forceinline__ bool resolve_pixel(
     const float* __restrict__ a, float bcx, float bcy,
     const int* __restrict__ tex_data, const int* __restrict__ tex_off,
     const int* __restrict__ tex_w, const int* __restrict__ tex_h,
     int shading, int xi, int yi, int& word) {
   const float bcz = (1.0f - bcx) - bcy;
-  const float u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
-  const float v = interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2]);
+  float u, v;
+  if (PERSP) {
+    const float izi = (bcx * a[C_IZA] + bcy * a[C_IZB]) + bcz * a[C_IZC];
+    u = persp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2], a[C_IZA], a[C_IZB],
+               a[C_IZC], izi);
+    v = persp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2], a[C_IZA],
+               a[C_IZB], a[C_IZC], izi);
+  } else {
+    u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
+    v = interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2]);
+  }
 
   const int tid = (int)a[C_TID];
   const bool textured = tid >= 0;
@@ -962,6 +1018,7 @@ __device__ __forceinline__ bool resolve_pixel(
 
 // Where no face drew: a plane (I, H, W) or, without one, a constant
 // word.  Grid: (blocks of 256 pixels of one plane, instances).
+template <bool PERSP>
 __global__ void __launch_bounds__(256)
 resolve_kernel(const int* __restrict__ winner,
                const float* __restrict__ bcx_in,
@@ -987,9 +1044,9 @@ resolve_kernel(const int* __restrict__ winner,
   bool drawn = false;
   const int w = winner[o];
   if (w >= 0)
-    drawn = resolve_pixel(attrs + ((size_t)inst * n_faces + w) * N_COLS,
-                          bcx_in[o], bcy_in[o], tex_data, tex_off, tex_w,
-                          tex_h, shading, xi, yi, word);
+    drawn = resolve_pixel<PERSP>(
+        attrs + ((size_t)inst * n_faces + w) * N_COLS, bcx_in[o], bcy_in[o],
+        tex_data, tex_off, tex_w, tex_h, shading, xi, yi, word);
   if (!drawn) word = bg_plane != nullptr ? bg_plane[o] : bg_word;
   color_out[o] = word;
 }
@@ -997,6 +1054,7 @@ resolve_kernel(const int* __restrict__ winner,
 // The same with the sky where no face drew.  Grid: (tiles_x, tiles_y,
 // instances) of sky tiles; a tile whose every pixel a face drew skips
 // the sky, and its tables and faces, altogether.
+template <bool PERSP>
 __global__ void __launch_bounds__(SKY_THREADS, SKY_MIN_BLOCKS)
 resolve_sky_kernel(const int* __restrict__ winner,
                    const float* __restrict__ bcx_in,
@@ -1027,9 +1085,10 @@ resolve_sky_kernel(const int* __restrict__ winner,
     if (xi < width && yi < height) {
       const int w = winner[o];
       if (w >= 0)
-        drawn = resolve_pixel(attrs + ((size_t)inst * n_faces + w) * N_COLS,
-                              bcx_in[o], bcy_in[o], tex_data, tex_off,
-                              tex_w, tex_h, shading, xi, yi, word[k]);
+        drawn = resolve_pixel<PERSP>(
+            attrs + ((size_t)inst * n_faces + w) * N_COLS, bcx_in[o],
+            bcy_in[o], tex_data, tex_off, tex_w, tex_h, shading, xi, yi,
+            word[k]);
     }
     need[k] = xi < width && yi < height && !drawn;
     any_need |= need[k];
@@ -1052,9 +1111,10 @@ resolve_sky_kernel(const int* __restrict__ winner,
 
 // Phase 3.  ZACTIVE: z-test against the opaque depth (z-buffer mode, not
 // x-ray).  XRAY: the 50% average in place of blend modes and editor alpha.
+// PERSP: perspective-correct UV over the entry's own 1/z at the pixel.
 // A fixed grid strides over the work list of bin_kernel: the (instance,
 // tile) pairs that a live entry touches; `bins` is over the composite list.
-template <bool ZACTIVE, bool XRAY>
+template <bool ZACTIVE, bool XRAY, bool PERSP>
 __global__ void __launch_bounds__(COMP_THREADS)
 composite_kernel(const int* __restrict__ tctrl,
                  const float* __restrict__ tfscal,
@@ -1185,9 +1245,18 @@ composite_kernel(const int* __restrict__ tctrl,
                 (bcx * a[C_IZA] + bcy * a[C_IZB]) + bcz * a[C_IZC];
             if (!(izi > zbuf[k])) continue;
           }
-          const float u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
-          const float v =
-              interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2]);
+          float u, v;
+          if (PERSP) {
+            const float izi =
+                (bcx * a[C_IZA] + bcy * a[C_IZB]) + bcz * a[C_IZC];
+            u = persp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2], a[C_IZA],
+                       a[C_IZB], a[C_IZC], izi);
+            v = persp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2], a[C_IZA],
+                       a[C_IZB], a[C_IZC], izi);
+          } else {
+            u = interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2]);
+            v = interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2]);
+          }
           const bool textured = c_tid >= 0;
           const int texel =
               tex_data[texel_at(s_t[f][0], s_t[f][1], s_t[f][2], u, v)];
@@ -1234,6 +1303,92 @@ composite_kernel(const int* __restrict__ tctrl,
   }
 }
 
+// The launches of each entry point, one instantiation per mode.
+template <bool PAINTERS, bool PERSP>
+int launch_visibility(const int* order, const int* ctrl, const float* attrs,
+                      const int* tex_data, const int* tex_off,
+                      const int* tex_w, const int* tex_h, const int* bins,
+                      float* depth, int* winner, float* bcx, float* bcy,
+                      int n_inst, int n_faces, int height, int width,
+                      cudaStream_t s) {
+  const dim3 block(TILE_W, TILE_H / VIS_ROWS);
+  const dim3 grid((width + TILE_W - 1) / TILE_W,
+                  (height + TILE_H - 1) / TILE_H, n_inst);
+  visibility_kernel<PAINTERS, PERSP><<<grid, block, 0, s>>>(
+      order, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, depth,
+      winner, bcx, bcy, n_faces, (n_faces + 31) / 32, height, width);
+  return (int)cudaGetLastError();
+}
+
+template <bool PERSP>
+int launch_resolve(const int* winner, const float* bcx, const float* bcy,
+                   const float* attrs, const int* tex_data,
+                   const int* tex_off, const int* tex_w, const int* tex_h,
+                   int* color, const int* bg_plane, const float* skyscal,
+                   const int* sky_faces, const SkyParams* sky, int n_inst,
+                   int n_faces, int height, int width, int shading,
+                   int background, int n_sky_faces, int vpad,
+                   cudaStream_t s) {
+  if (sky != nullptr) {
+    const dim3 grid((width + SKY_TILE_W - 1) / SKY_TILE_W,
+                    (height + SKY_TILE_H - 1) / SKY_TILE_H, n_inst);
+    resolve_sky_kernel<PERSP>
+        <<<grid, dim3(SKY_TILE_W, SKY_TILE_H / SKY_THREAD_ROWS), 0, s>>>(
+            winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
+            skyscal, sky_faces, n_faces, height, width, shading, n_sky_faces,
+            vpad, *sky);
+  } else {
+    const int threads = 256;
+    const dim3 grid((height * width + threads - 1) / threads, n_inst);
+    resolve_kernel<PERSP><<<grid, threads, 0, s>>>(
+        winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
+        bg_plane, n_faces, height, width, shading, background);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Blocks of `kernel` that fill the card once: the fixed grid that strides
+// over a work list.
+template <typename K>
+int resident_blocks(K kernel, int* out) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        COMP_THREADS, 0);
+  *out = sms * per_sm;
+  return (int)err;
+}
+
+template <bool ZACTIVE, bool XRAY, bool PERSP>
+int launch_composite(const int* tctrl, const float* tfscal, const int* ctrl,
+                     const float* attrs, const int* tex_data,
+                     const int* tex_off, const int* tex_w, const int* tex_h,
+                     const int* bins, const int* work, int* work_state,
+                     const float* depth, int* color, int n_inst, int n_tr,
+                     int n_faces, int height, int width, int shading,
+                     cudaStream_t s) {
+  static int resident = 0;   // per mode; the same on every card of a host
+  if (resident == 0) {
+    const int err = resident_blocks(composite_kernel<ZACTIVE, XRAY, PERSP>,
+                                    &resident);
+    if (err != 0) return err;
+    if (resident == 0) return (int)cudaErrorLaunchOutOfResources;
+  }
+  const int tiles_x = (width + TILE_W - 1) / TILE_W;
+  const int n_tiles = tiles_x * ((height + TILE_H - 1) / TILE_H);
+  const long long most = (long long)n_inst * n_tiles;
+  const int grid = (int)(most < resident ? most : resident);
+  composite_kernel<ZACTIVE, XRAY, PERSP>
+      <<<grid, dim3(TILE_W, TILE_H / COMP_ROWS), 0, s>>>(
+      tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, work,
+      work_state, depth, color, n_tr, n_faces, (n_tr + 31) / 32, tiles_x,
+      n_tiles, height, width, shading);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1266,32 +1421,26 @@ int raster_bin(const int* list, const int* count, const int* ctrl, int* bins,
   return (int)cudaGetLastError();
 }
 
+// `perspective`: keyed faces test their texel at the perspective-correct UV.
 int raster_visibility(const int* order, const int* ctrl, const float* attrs,
                       const int* tex_data, const int* tex_off,
                       const int* tex_w, const int* tex_h, const int* bins,
                       float* depth, int* winner, float* bcx, float* bcy,
                       int n_inst, int n_faces, int height, int width,
-                      int painters, void* stream) {
-  const dim3 block(TILE_W, TILE_H / VIS_ROWS);
-  const dim3 grid((width + TILE_W - 1) / TILE_W,
-                  (height + TILE_H - 1) / TILE_H, n_inst);
-  const int n_words = (n_faces + 31) / 32;
+                      int painters, int perspective, void* stream) {
   if (n_inst == 0 || height == 0 || width == 0) return 0;
-  if (painters) {
-    visibility_kernel<true><<<grid, block, 0, (cudaStream_t)stream>>>(
-        order, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, depth,
-        winner, bcx, bcy, n_faces, n_words, height, width);
-  } else {
-    visibility_kernel<false><<<grid, block, 0, (cudaStream_t)stream>>>(
-        order, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, depth,
-        winner, bcx, bcy, n_faces, n_words, height, width);
-  }
-  return (int)cudaGetLastError();
+  const cudaStream_t s = (cudaStream_t)stream;
+  auto launch = painters ? (perspective ? &launch_visibility<true, true>
+                                        : &launch_visibility<true, false>)
+                         : (perspective ? &launch_visibility<false, true>
+                                        : &launch_visibility<false, false>);
+  return launch(order, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins,
+                depth, winner, bcx, bcy, n_inst, n_faces, height, width, s);
 }
 
 // `bg_plane` (I, H, W) or, with `sky` set, `skyscal` + `sky_faces` replace
 // the constant `background` word where no face drew; at most one of the
-// two is given.
+// two is given.  `perspective`: perspective-correct UVs.
 int raster_resolve(const int* winner, const float* bcx, const float* bcy,
                    const float* attrs, const int* tex_data,
                    const int* tex_off, const int* tex_w, const int* tex_h,
@@ -1299,26 +1448,14 @@ int raster_resolve(const int* winner, const float* bcx, const float* bcy,
                    const int* sky_faces, const SkyParams* sky, int n_inst,
                    int n_faces, int height, int width, int shading,
                    int background, int n_sky_faces, int vpad,
-                   void* stream) {
+                   int perspective, void* stream) {
   if (sky != nullptr && bg_plane != nullptr) return (int)cudaErrorInvalidValue;
   if (n_inst == 0 || height == 0 || width == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
-  if (sky != nullptr) {
-    const dim3 grid((width + SKY_TILE_W - 1) / SKY_TILE_W,
-                    (height + SKY_TILE_H - 1) / SKY_TILE_H, n_inst);
-    resolve_sky_kernel<<<grid, dim3(SKY_TILE_W, SKY_TILE_H / SKY_THREAD_ROWS), 0,
-                         s>>>(
-        winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
-        skyscal, sky_faces, n_faces, height, width, shading, n_sky_faces,
-        vpad, *sky);
-  } else {
-    const int threads = 256;
-    const dim3 grid((height * width + threads - 1) / threads, n_inst);
-    resolve_kernel<<<grid, threads, 0, s>>>(
-        winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h, color,
-        bg_plane, n_faces, height, width, shading, background);
-  }
-  return (int)cudaGetLastError();
+  auto launch = perspective ? &launch_resolve<true> : &launch_resolve<false>;
+  return launch(winner, bcx, bcy, attrs, tex_data, tex_off, tex_w, tex_h,
+                color, bg_plane, skyscal, sky_faces, sky, n_inst, n_faces,
+                height, width, shading, background, n_sky_faces, vpad,
+                (cudaStream_t)stream);
 }
 
 // `tile_words` (I, tiles_y, tiles_x, ceil(n_sky_faces / 32)) or null:
@@ -1337,87 +1474,38 @@ int raster_sky(const float* skyscal, const int* sky_faces,
   return (int)cudaGetLastError();
 }
 
-}  // extern "C"
-
-namespace {
-
-// Blocks of `kernel` that fill the card once: the fixed grid that strides
-// over a work list.
-template <typename K>
-int resident_blocks(K kernel, int* out) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        COMP_THREADS, 0);
-  *out = sms * per_sm;
-  return (int)err;
-}
-
-template <bool ZACTIVE, bool XRAY>
-int launch_composite(const int* tctrl, const float* tfscal, const int* ctrl,
-                     const float* attrs, const int* tex_data,
-                     const int* tex_off, const int* tex_w, const int* tex_h,
-                     const int* bins, const int* work, int* work_state,
-                     const float* depth, int* color, int n_inst, int n_tr,
-                     int n_faces, int height, int width, int shading,
-                     cudaStream_t s) {
-  static int resident = 0;   // per mode; the same on every card of a host
-  if (resident == 0) {
-    const int err = resident_blocks(composite_kernel<ZACTIVE, XRAY>,
-                                    &resident);
-    if (err != 0) return err;
-    if (resident == 0) return (int)cudaErrorLaunchOutOfResources;
-  }
-  const int tiles_x = (width + TILE_W - 1) / TILE_W;
-  const int n_tiles = tiles_x * ((height + TILE_H - 1) / TILE_H);
-  const long long most = (long long)n_inst * n_tiles;
-  const int grid = (int)(most < resident ? most : resident);
-  composite_kernel<ZACTIVE, XRAY>
-      <<<grid, dim3(TILE_W, TILE_H / COMP_ROWS), 0, s>>>(
-      tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins, work,
-      work_state, depth, color, n_tr, n_faces, (n_tr + 31) / 32, tiles_x,
-      n_tiles, height, width, shading);
-  return (int)cudaGetLastError();
-}
-
-}  // namespace
-
-extern "C" {
-
 // `bins`, `work`: raster_bin's over the composite list `tctrl`;
 // `work_state`: two ints, raster_bin's `work_len` and a cursor that is zero
-// on entry and that this launch advances.
+// on entry and that this launch advances.  `perspective`: perspective-
+// correct UVs.
 int raster_composite(const int* tctrl, const float* tfscal, const int* ctrl,
                      const float* attrs, const int* tex_data,
                      const int* tex_off, const int* tex_w, const int* tex_h,
                      const int* bins, const int* work, int* work_state,
                      const float* depth, int* color, int n_inst, int n_tr,
                      int n_faces, int height, int width, int shading,
-                     int mode, void* stream) {
+                     int mode, int perspective, void* stream) {
   if (n_inst == 0 || n_tr == 0 || height == 0 || width == 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
+  decltype(&launch_composite<true, false, false>) launch;
   switch (mode) {
     case MODE_ZBUFFER:
-      return launch_composite<true, false>(
-          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins,
-          work, work_state, depth, color, n_inst, n_tr, n_faces, height, width,
-          shading, s);
+      launch = perspective ? &launch_composite<true, false, true>
+                           : &launch_composite<true, false, false>;
+      break;
     case MODE_PAINTERS:
-      return launch_composite<false, false>(
-          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins,
-          work, work_state, depth, color, n_inst, n_tr, n_faces, height, width,
-          shading, s);
+      launch = perspective ? &launch_composite<false, false, true>
+                           : &launch_composite<false, false, false>;
+      break;
     case MODE_XRAY:
-      return launch_composite<false, true>(
-          tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h, bins,
-          work, work_state, depth, color, n_inst, n_tr, n_faces, height, width,
-          shading, s);
+      launch = perspective ? &launch_composite<false, true, true>
+                           : &launch_composite<false, true, false>;
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return launch(tctrl, tfscal, ctrl, attrs, tex_data, tex_off, tex_w, tex_h,
+                bins, work, work_state, depth, color, n_inst, n_tr, n_faces,
+                height, width, shading, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -12,10 +12,13 @@ the folds only specialised.
 `render_level_flat` routes as the JAX package's kernel path does:
 visibility, resolve, then the ordered composite of the transparent faces;
 painter's mode through the painter's visibility; x-ray as the composite
-of every face onto the background.  Affine textures and a constant
-background only: every configuration the JAX package would hand to its
-sequential renderer, and every one not ported yet, raises
-NotImplementedError.
+of every face onto the background; affine or perspective-correct UVs;
+then the editor's backface wireframes, or, in `wireframe_overlay` mode,
+the front edges alone on the cleared frame (ops/wireframe.py).  Placed
+asset parts compile into draw groups of their own after the rooms.  The
+configurations the JAX package hands to its sequential renderer raise
+NotImplementedError (`check_slice`), with one exception: x-ray with
+perspective-correct UVs, which the port's composite kernel draws.
 """
 
 import dataclasses
@@ -28,6 +31,7 @@ from ..config import BlendMode, NEAR_PLANE, RasterSettings, \
     ShadingMode
 from ..ops import raster_batch as rb
 from ..ops import skybox as sky_ops
+from ..ops import wireframe as wf
 from ..ops.lighting import normalize_rows, shade_points
 from ..ops.surface import _apply_fog_to_color, _fog_factor
 from ..ops.vertex import transform_vertices
@@ -35,6 +39,7 @@ from ..types import (CameraArrays, FaceArrays, FrameBuffers, Lights,
                      MeshArrays, Surfaces, TextureAtlas, resolve_device,
                      to_device)
 from . import build
+from .scene import resolve_part_texture15, transform_part_vertices
 
 F32 = np.float32
 _LATER = "is not ported yet (ROADMAP.md queue 1)"
@@ -98,23 +103,64 @@ def _room_fog_params(room):
 
 def compile_level_flat(level, textures, resolve,
                        light_specs: Optional[List[dict]] = None,
-                       asset_library=None, light_pad: int = 8,
+                       asset_library=None, user_textures=None,
+                       light_pad: int = 8,
                        device=None) -> Tuple[FlatScene, FlatSceneStatic]:
     """Level -> (FlatScene on `device` (default: the card),
     FlatSceneStatic).  `textures` are (pixels15, blend) tuples or objects
     with `.pixels15`; `resolve` maps a TextureRef to (texture id, width)
-    as in the JAX package."""
+    as in the JAX package.  With an `asset_library`, the level's placed
+    objects draw after the rooms, one draw group per visible part, each
+    part with its own texture appended to the table (`user_textures`
+    resolves TextureRef::Id parts)."""
     device = resolve_device(device)
-    if asset_library is not None:
-        raise NotImplementedError(f"placed asset draws {_LATER}")
     tex_list = [t if isinstance(t, tuple) else (t.pixels15, 0)
                 for t in textures]
-    groups = []
+    groups = []   # (verts, faces, fog row, ambient, double-sided or None)
     for room in level.rooms:
         verts, faces = room.to_render_data(resolve)
-        groups.append((verts, faces, _room_fog_params(room), room.ambient))
+        groups.append((verts, faces, _room_fog_params(room), room.ambient,
+                       None))
+    if asset_library is not None:
+        groups += _asset_groups(level, asset_library, user_textures, tex_list)
     scene, static = _compile_groups(groups, tex_list, light_specs, light_pad)
     return to_device(scene, device), static
+
+
+def _asset_groups(level, asset_library, user_textures, tex_list):
+    """The placed asset draws (scene.rs:226-259), as the JAX package walks
+    them: per room, per enabled object whose asset has a mesh, per visible
+    non-empty part, its vertices placed in the world, one texture appended
+    to `tex_list` (which this extends) for all of the part's faces, the
+    room's fog and ambient, and the part's double-sidedness on every
+    face."""
+    groups = []
+    for room in level.rooms:
+        fog_row = _room_fog_params(room)
+        for obj in room.objects:
+            if not obj.enabled:
+                continue
+            asset = asset_library.get_by_id(obj.asset_id)
+            parts = asset.mesh() if asset is not None else None
+            if not parts:
+                continue
+            wp = obj.world_position(room)
+            for part in parts:
+                if not part.visible:
+                    continue
+                verts, pfaces = part.mesh.to_render_data_textured()
+                if not verts:
+                    continue
+                verts = transform_part_vertices(verts, obj.facing, wp)
+                gid = len(tex_list)
+                tex_list.append((resolve_part_texture15(part, user_textures),
+                                 0))
+                pfaces = [dict(f, tex_id=(gid if f.get("tex_id") is not None
+                                          else None))
+                          for f in pfaces]
+                groups.append((verts, pfaces, fog_row, room.ambient,
+                               part.double_sided))
+    return groups
 
 
 def compile_scene_flat(verts, faces, textures, light_specs=None,
@@ -129,15 +175,16 @@ def compile_scene_flat(verts, faces, textures, light_specs=None,
     tex_list = [t if isinstance(t, tuple) else (t.pixels15, 0)
                 for t in textures]
     fog_row = (False, 0.0, 0.0, 3.4e38, (0, 0, 0))
-    groups = [(list(verts), [dict(f) for f in faces], fog_row, ambient)]
+    groups = [(list(verts), [dict(f) for f in faces], fog_row, ambient,
+               None)]
     scene, static = _compile_groups(groups, tex_list, light_specs, light_pad)
     return to_device(scene, device), static
 
 
 def _compile_groups(groups, tex_list, light_specs, light_pad):
     all_v, all_f = [], []
-    fog_rows, ambients, group_ids = [], [], []
-    for gi, (verts, faces, fog_row, amb) in enumerate(groups):
+    fog_rows, ambients, ds_flags, group_ids = [], [], [], []
+    for gi, (verts, faces, fog_row, amb, ds) in enumerate(groups):
         base = len(all_v)
         if not verts:
             verts = [dict(pos=(0, 0, 0), uv=(0, 0), normal=(0, 0, 0),
@@ -148,6 +195,9 @@ def _compile_groups(groups, tex_list, light_specs, light_pad):
                               v2=f["v2"] + base))
             fog_rows.append(fog_row)
             ambients.append(amb)
+            # a placed part's own flag holds for every one of its faces
+            ds_flags.append(bool(ds) if ds is not None
+                            else bool(f.get("double_sided", False)))
             group_ids.append(gi)
     if not all_f:
         raise ValueError("the level has no faces")
@@ -177,7 +227,7 @@ def _compile_groups(groups, tex_list, light_specs, light_pad):
     bt = np.array([f.get("black_transparent", True) for f in all_f], bool)
     face_bm = np.array([f.get("blend_mode", 0) for f in all_f], np.int32)
     ea = np.array([f.get("editor_alpha", 255) for f in all_f], np.int32)
-    ds = np.array([bool(f.get("double_sided", False)) for f in all_f], bool)
+    ds = np.array(ds_flags, bool)
     kp = build.compute_key_possible(uv, vidx, tid, bt, tex_list)
     fa = build.make_face_arrays(vidx, tid, bt, face_bm, ea, ds, kp)
 
@@ -329,11 +379,13 @@ def kernel_path_ok(static: FlatSceneStatic,
                    settings: RasterSettings) -> bool:
     """Whether the JAX package takes its kernel path (scene_flat.
     kernel_path_ok) for this level and these settings; where it does not,
-    it runs its sequential renderer, which is not ported.  The port has no
-    face-table segments and no packed texel encodings, so only these
-    conditions remain: no ortho projection; backface wireframes in one
-    draw group only; x-ray with affine UVs; otherwise every transparent
-    face in the final draw group."""
+    it runs its sequential renderer.  The port has no face-table segments
+    and no packed texel encodings, so only these conditions remain: no
+    ortho projection; backface wireframes in one draw group only; x-ray
+    with affine UVs; otherwise every transparent face in the final draw
+    group.  This mirrors the JAX function only: the port's routing does
+    not read it, and `check_slice` differs from it in one case, x-ray
+    with perspective-correct UVs, which the port's composite draws."""
     if settings.ortho_projection is not None:
         return False
     if (settings.backface_cull and settings.backface_wireframe
@@ -345,18 +397,20 @@ def kernel_path_ok(static: FlatSceneStatic,
 
 
 def check_slice(static: FlatSceneStatic, settings: RasterSettings):
-    """Raise NotImplementedError for every configuration outside the
-    ported slice: ortho projection, wireframes, perspective-correct UVs,
-    and transparent faces outside the last draw group (the JAX package's
-    sequential renderer; of kernel_path_ok's conditions, the only one the
-    others leave open)."""
+    """Raise NotImplementedError for every configuration that the JAX
+    package hands to its sequential renderer, which is not ported: ortho
+    projection; backface wireframes over more than one draw group (the
+    reference interleaves each group's solids and wires, which a pass
+    after all solids cannot reproduce); transparent faces outside the last
+    draw group, outside x-ray mode.  X-ray with perspective-correct UVs,
+    sequential in the JAX package, runs here in the composite kernel."""
     if settings.ortho_projection is not None:
         raise NotImplementedError(f"ortho projection {_LATER}")
-    if settings.wireframe_overlay or (settings.backface_cull
-                                      and settings.backface_wireframe):
-        raise NotImplementedError(f"wireframe passes {_LATER}")
-    if not settings.affine_textures:
-        raise NotImplementedError(f"perspective-correct UVs {_LATER}")
+    if (settings.backface_cull and settings.backface_wireframe
+            and static.n_draw_groups > 1):
+        raise NotImplementedError(
+            "the sequential renderer (backface wireframes over "
+            f"{static.n_draw_groups} draw groups) {_LATER}")
     if not settings.xray_mode and not static.transparent_last:
         raise NotImplementedError(
             "the sequential renderer (transparent faces outside the last "
@@ -376,7 +430,17 @@ def render_level_flat(scene: FlatScene, static: FlatSceneStatic,
         transparent-face list back to front, if the level has one;
       * x-ray mode: the composite of every face in draw order onto the
         background, with a cleared depth plane; neither visibility nor
-        resolve runs.
+        resolve runs;
+      * then, with backface culling and backface wireframes on (the
+        editor's default), the back faces' edges, depth-tested against
+        the final depth plane;
+      * `wireframe_overlay`: no solid pass at all, only the front faces'
+        edges on the cleared frame: the word `background`, or 0 with a
+        `sky` or `fb_color`, whose sky the JAX kernel path does not draw
+        under the overlay either.
+
+    `affine_textures` off takes the perspective-correct UV in every
+    kernel.
 
     The background is one of: the word `background`; `fb_color`, an
     (I, H, W) i32 plane (the sky-buffer route: ops.skybox.render_skybox);
@@ -387,7 +451,8 @@ def render_level_flat(scene: FlatScene, static: FlatSceneStatic,
 
     CUDA tensors run the kernels of csrc/raster.cu, CPU tensors their
     plain twins."""
-    surf = build_surfaces_flat(scene, cams, settings, width, height)
+    surf = (None if settings.wireframe_overlay
+            else build_surfaces_flat(scene, cams, settings, width, height))
     return render_surfaces_flat(scene, static, surf, settings, height,
                                 width, background, sky=sky,
                                 fb_color=fb_color, cams=cams)
@@ -401,8 +466,20 @@ def render_surfaces_flat(scene: FlatScene, static: FlatSceneStatic,
     """render_level_flat from the surfaces on: prep, then the kernels as
     routed there.  Takes surfaces built elsewhere (the tests feed the JAX
     package's, to hold the raster phases to it apart from the surfaces'
-    float rounding); the in-kernel sky needs the cameras too."""
+    float rounding); the in-kernel sky and the wireframes need the cameras
+    too (overlay mode reads no surfaces)."""
     check_slice(static, settings)
+    if wf.wires_on(settings) and cams is None:
+        raise ValueError("the wireframe passes need the cameras")
+    if settings.wireframe_overlay:
+        # the solid passes are skipped (render.rs:2550)
+        word = background if sky is None and fb_color is None else 0
+        shape = (cams.position.shape[0], height, width)
+        dev = cams.position.device
+        color = torch.full(shape, word, dtype=torch.int32, device=dev)
+        depth = torch.zeros(shape, dtype=torch.float32, device=dev)
+        return FrameBuffers(color=wf.render_wireframes_flat(
+            color, depth, scene, cams, settings), depth=depth)
     if sky is not None:
         if fb_color is not None or background != 0:
             raise ValueError("sky excludes fb_color and a background word")
@@ -430,7 +507,7 @@ def render_surfaces_flat(scene: FlatScene, static: FlatSceneStatic,
         tr = rb.prep_xray(surf, group_id=scene.f_group,
                           use_zbuffer=settings.use_zbuffer)
         color = rb.composite(color, depth, tr, tables, scene.atlas, settings)
-        return FrameBuffers(color=color, depth=depth)
+        return _backface_wires(color, depth, scene, cams, settings)
     prep = rb.prep_instance(surf, scene.atlas, width, height,
                             painters=not settings.use_zbuffer,
                             group_id=scene.f_group)
@@ -444,4 +521,14 @@ def render_surfaces_flat(scene: FlatScene, static: FlatSceneStatic,
     if static.transparent_idx:
         tr = rb.prep_transparent(surf, static.transparent_idx)
         color = rb.composite(color, depth, tr, prep, scene.atlas, settings)
+    return _backface_wires(color, depth, scene, cams, settings)
+
+
+def _backface_wires(color, depth, scene, cams, settings) -> FrameBuffers:
+    """The frame after its solid and transparent passes, with the back
+    faces' edges over it where the settings draw them (check_slice allows
+    them for one draw group only)."""
+    if settings.backface_cull and settings.backface_wireframe:
+        color = wf.render_wireframes_flat(color, depth, scene, cams,
+                                          settings)
     return FrameBuffers(color=color, depth=depth)

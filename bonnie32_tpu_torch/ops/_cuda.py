@@ -177,10 +177,10 @@ def load(name: str = "raster"):
             ptr, i32 = ctypes.c_void_p, ctypes.c_int
             if name == "raster":
                 lib.raster_bin.argtypes = [ptr] * 6 + [i32] * 6 + [ptr]
-                lib.raster_visibility.argtypes = ([ptr] * 12 + [i32] * 5
+                lib.raster_visibility.argtypes = ([ptr] * 12 + [i32] * 6
                                                   + [ptr])
-                lib.raster_resolve.argtypes = [ptr] * 13 + [i32] * 8 + [ptr]
-                lib.raster_composite.argtypes = ([ptr] * 13 + [i32] * 7
+                lib.raster_resolve.argtypes = [ptr] * 13 + [i32] * 9 + [ptr]
+                lib.raster_composite.argtypes = ([ptr] * 13 + [i32] * 8
                                                  + [ptr])
                 lib.raster_sky.argtypes = [ptr] * 5 + [i32] * 5 + [ptr]
                 for fn in (lib.raster_bin, lib.raster_visibility,
@@ -280,11 +280,12 @@ raster_bin.launches = 0
 
 
 def raster_visibility(prep, atlas, height: int, width: int,
-                      painters: bool = False):
+                      painters: bool = False, perspective: bool = False):
     """Launch `raster_bin` over the kept faces, then `raster_visibility`
     (phase 1): returns (depth f32, winner i32, bcx f32, bcy f32), each
     (I, H, W) on the prep's device.  `painters`: the painter's merge (last
-    covering face wins) and a cleared depth plane."""
+    covering face wins) and a cleared depth plane.  `perspective`: keyed
+    faces test their texel at the perspective-correct UV."""
     lib = load()
     dev = prep.attrs.device
     n, t = prep.order.shape
@@ -305,7 +306,7 @@ def raster_visibility(prep, atlas, height: int, width: int,
     err = lib.raster_visibility(*args, bins.data_ptr(), depth.data_ptr(),
                                 winner.data_ptr(), bcx.data_ptr(),
                                 bcy.data_ptr(), n, t, height, width,
-                                int(painters), stream)
+                                int(painters), int(perspective), stream)
     _raise_on(err, "raster_visibility")
     raster_visibility.launches += 1
     return depth, winner, bcx, bcy
@@ -324,11 +325,13 @@ def _sky_args(sky, scal, n, height, width, dev):
                     dev)], params, nf)
 
 
-def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int, background):
+def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int, background,
+                   perspective: bool = False):
     """Launch `raster_resolve` (phase 2): the packed RGBA8 colour plane
     (I, H, W) i32.  `background` fills the pixels no face drew: an int
     (one word), an (I, H, W) i32 plane, or an ops.skybox.SkyBackground
-    (the in-kernel sky)."""
+    (the in-kernel sky).  `perspective`: perspective-correct UVs over the
+    winner's 1/z."""
     lib = load()
     dev = prep.attrs.device
     n, height, width = winner.shape
@@ -356,7 +359,8 @@ def raster_resolve(prep, atlas, winner, bcx, bcy, shading: int, background):
     err = lib.raster_resolve(
         *args, color.data_ptr(), plane, *sky_ptrs,
         ctypes.addressof(params) if params is not None else None,
-        n, t, height, width, int(shading), word, nf, vpad, stream)
+        n, t, height, width, int(shading), word, nf, vpad,
+        int(perspective), stream)
     _raise_on(err, "raster_resolve")
     raster_resolve.launches += 1
     return color
@@ -396,14 +400,16 @@ def raster_sky(sky, scal, height: int, width: int, want_tiles: bool = False):
 raster_sky.launches = 0
 
 
-def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int):
+def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int,
+                     perspective: bool = False):
     """Launch `raster_bin` over the entries of the TransPrep `tr`, then
     `raster_composite` (phase 3), which composites them in order onto
     `color` (I, H, W) i32, IN PLACE, in the tiles a live entry touches, and
     returns it; face rows come from `prep` (a BatchPrep or FaceTables).
     `mode` is a raster_batch.COMPOSITE_* value: z-buffer mode z-tests
     against `depth` (I, H, W) f32, which is never written; x-ray takes the
-    50% average in place of the blend modes."""
+    50% average in place of the blend modes.  `perspective`:
+    perspective-correct UVs over each entry's own 1/z."""
     lib = load()
     dev = color.device
     n, height, width = color.shape
@@ -427,7 +433,8 @@ def raster_composite(color, depth, tr, prep, atlas, shading: int, mode: int):
     stream = torch.cuda.current_stream(dev).cuda_stream
     err = lib.raster_composite(*args, bins.data_ptr(), work.data_ptr(),
                                work_len.data_ptr(), *planes, n, nt, t, height,
-                               width, int(shading), int(mode), stream)
+                               width, int(shading), int(mode),
+                               int(perspective), stream)
     _raise_on(err, "raster_composite")
     raster_composite.launches += 1
     return color

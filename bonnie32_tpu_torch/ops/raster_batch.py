@@ -13,7 +13,8 @@
     plane comes back cleared.  Output: depth, winner face id and the
     winner's (bcx, bcy) per pixel;
   * RESOLVE (phase 2): per pixel with a winner, the PS1 pixel pipeline —
-    affine UV, wrap, texel fetch, black/transparent key fixups, 5->8
+    affine or perspective-correct UV, wrap, texel fetch, black/transparent
+    key fixups, 5->8
     expand, vertex-colour modulate, shade, Bayer dither, RGB555 quantize,
     RGBA8 pack; where no face drew, the background: one word, a plane
     (the sky-buffer route) or the sky itself, evaluated per pixel (the
@@ -24,6 +25,18 @@
 every face, for x-ray mode) onto the colour plane, with the PS1 blend
 modes and the editor-alpha lerp, or x-ray's 50% blend.  It z-tests
 against the opaque depth in z-buffer mode and never writes depth.
+
+With `affine_textures` off, every phase takes the perspective-correct UV
+(render.rs:1563-1579): u/z and v/z interpolated over the corners' 1/z and
+divided by the pixel's interpolated 1/z, or by 1 where that is 0 — the
+keyed coverage test at the face's own 1/z, resolve at the winner's (which
+it recomputes from the winner's barycentrics and attribute row: bit for
+bit the value the merge kept in the depth plane, so painter's mode, whose
+depth plane comes back cleared, needs nothing handed over), the composite
+at each entry's own.  The JAX kernel takes it in phases 1-2 only and hands
+the transparent faces, and x-ray, to its sequential compositor, whose
+division is exact too (ops/exactf.py); the port runs all of them in its
+kernels.
 
 For CUDA tensors every phase is a hand-written kernel of csrc/raster.cu
 (ops/_cuda.py); for CPU tensors they are the plain torch twins below,
@@ -208,6 +221,22 @@ def _interp3(bcx, bcy, bcz, a0, a1, a2):
     return (bcx * a0 + bcy * a1) + bcz * a2
 
 
+def _face_uv(bcx, bcy, bcz, col, izi=None):
+    """(u, v) at the pixel of the face whose attrs column c is `col(c)`:
+    affine without `izi`; else perspective-correct (render.rs:1563-1579)
+    over the pixel's interpolated 1/z `izi`: ((bcx u0) iz0 + (bcy u1) iz1)
+    + (bcz u2) iz2, divided by izi, or by 1 where izi is 0 (a tensor
+    division: IEEE on the CPU and the card)."""
+    if izi is None:
+        return (_interp3(bcx, bcy, bcz, col(C_U0), col(C_U1), col(C_U2)),
+                _interp3(bcx, bcy, bcz, col(C_VV0), col(C_VV1), col(C_VV2)))
+    za, zb, zc = col(C_IZA), col(C_IZB), col(C_IZC)
+    safe = torch.where(izi == 0, torch.ones_like(izi), izi)
+    return tuple(
+        (((bcx * col(t0)) * za + (bcy * col(t1)) * zb) + (bcz * col(t2)) * zc)
+        / safe for t0, t1, t2 in ((C_U0, C_U1, C_U2), (C_VV0, C_VV1, C_VV2)))
+
+
 def _wrap01(x):
     """Texture UV wrap: fmod into [0, 1), negatives shifted, NaN -> 0."""
     r = x - torch.trunc(x)
@@ -304,11 +333,14 @@ def work_list_ref(bins):
 
 
 def visibility_ref(prep: BatchPrep, atlas: TextureAtlas,
-                   height: int, width: int, painters: bool = False):
+                   height: int, width: int, painters: bool = False,
+                   perspective: bool = False):
     """Plain torch twin of the `raster_visibility` kernel.  Returns
     (depth f32, winner i32 original face id or -1, bcx f32, bcy f32), each
     (I, H, W).  `painters`: the last covering face wins and the depth
-    plane is returned cleared (painter's never writes depth)."""
+    plane is returned cleared (painter's never writes depth).
+    `perspective`: keyed faces test their texel at the perspective-correct
+    UV."""
     n = prep.count.shape[0]
     dev = prep.attrs.device
     yi = torch.arange(height, device=dev, dtype=torch.int32)[None, :, None]
@@ -337,15 +369,14 @@ def visibility_ref(prep: BatchPrep, atlas: TextureAtlas,
         cov = ((bcx >= COVER_EPS) & (bcy >= COVER_EPS) & (bcz >= COVER_EPS)
                & (xi >= k[:, K_XLO]) & (xi < k[:, K_XHI])
                & (yi >= k[:, K_YLO]) & (yi < k[:, K_YHI]) & live)
+        izi = (bcx * a[:, C_IZA] + bcy * a[:, C_IZB]) + bcz * a[:, C_IZC]
         keyed = k[:, K_KEY] != 0
         if bool(keyed.any()):
-            u = _interp3(bcx, bcy, bcz, a[:, C_U0], a[:, C_U1], a[:, C_U2])
-            v = _interp3(bcx, bcy, bcz, a[:, C_VV0], a[:, C_VV1],
-                         a[:, C_VV2])
+            u, v = _face_uv(bcx, bcy, bcz, lambda c: a[:, c],
+                            izi if perspective else None)
             tid = torch.clamp(k[:, K_TID], min=0).expand(shape)
             texel = atlas.data[_texel_index(atlas, tid, u, v).long()]
             cov = cov & ~(keyed & ((texel & 0x7FFF) == 0))
-        izi = (bcx * a[:, C_IZA] + bcy * a[:, C_IZB]) + bcz * a[:, C_IZC]
         better = cov if painters else cov & (izi > depth)
         depth = torch.where(better, izi, depth)
         winner = torch.where(better, fid.to(torch.int32)[:, None, None],
@@ -375,10 +406,12 @@ def background_ref(background, n: int, height: int, width: int, device):
 
 
 def resolve_ref(prep: BatchPrep, atlas: TextureAtlas, winner, bcx, bcy,
-                shading: int, background=0):
+                shading: int, background=0, perspective: bool = False):
     """Plain torch twin of the `raster_resolve` kernel: the packed RGBA8
     colour plane (I, H, W) for the winners of `visibility_ref`, over
-    `background` (one word, a plane, or a SkyBackground)."""
+    `background` (one word, a plane, or a SkyBackground).  `perspective`:
+    perspective-correct UVs over the winner's 1/z at the pixel, computed
+    as the merge computed it."""
     n, height, width = winner.shape
     dev = winner.device
     yi = torch.arange(height, device=dev, dtype=torch.int32)[None, :, None]
@@ -388,8 +421,9 @@ def resolve_ref(prep: BatchPrep, atlas: TextureAtlas, winner, bcx, bcy,
     a = prep.attrs[inst, torch.clamp(winner, min=0).long()]   # (I,H,W,32)
     a = a.permute(3, 0, 1, 2)
     bcz = (1.0 - bcx) - bcy
-    u = _interp3(bcx, bcy, bcz, a[C_U0], a[C_U1], a[C_U2])
-    v = _interp3(bcx, bcy, bcz, a[C_VV0], a[C_VV1], a[C_VV2])
+    izi = ((bcx * a[C_IZA] + bcy * a[C_IZB]) + bcz * a[C_IZC]
+           if perspective else None)
+    u, v = _face_uv(bcx, bcy, bcz, lambda c: a[c], izi)
     tid = a[C_TID].to(torch.int32)
     textured = tid >= 0
     texel = atlas.data[_texel_index(atlas, torch.clamp(tid, min=0),
@@ -443,18 +477,21 @@ def rasterize_batch(prep: BatchPrep, atlas: TextureAtlas,
     There is no other branch."""
     shading = int(settings.shading)
     painters = not settings.use_zbuffer
+    persp = not settings.affine_textures
     if prep.attrs.is_cuda:
         from . import _cuda
         depth, winner, bcx, bcy = _cuda.raster_visibility(
-            prep, atlas, height, width, painters=painters)
+            prep, atlas, height, width, painters=painters, perspective=persp)
         color = _cuda.raster_resolve(prep, atlas, winner, bcx, bcy,
-                                     shading, background)
+                                     shading, background, perspective=persp)
         return color, depth
     if prep.attrs.device.type != "cpu":
         raise ValueError(f"unsupported device {prep.attrs.device}")
     depth, winner, bcx, bcy = visibility_ref(prep, atlas, height, width,
-                                             painters=painters)
-    color = resolve_ref(prep, atlas, winner, bcx, bcy, shading, background)
+                                             painters=painters,
+                                             perspective=persp)
+    color = resolve_ref(prep, atlas, winner, bcx, bcy, shading, background,
+                        perspective=persp)
     return color, depth
 
 
@@ -572,13 +609,14 @@ def composite_mode(settings: RasterSettings) -> int:
 
 
 def composite_ref(color, depth, tr: TransPrep, prep, atlas: TextureAtlas,
-                  shading: int, mode: int):
+                  shading: int, mode: int, perspective: bool = False):
     """Plain torch twin of the `raster_composite` kernel: the composite
     entries of `tr` in order, each onto the colour plane (I, H, W) i32 of
     the phase before, reading face rows from `prep` (a BatchPrep or
     FaceTables).  COMPOSITE_ZBUFFER z-tests `izi > depth` against the
     opaque depth (never written); COMPOSITE_XRAY takes the 50% average in
-    place of the blend modes and editor alpha.  Returns the new colour
+    place of the blend modes and editor alpha; `perspective`: perspective-
+    correct UVs over each entry's own 1/z.  Returns the new colour
     plane."""
     if mode not in (COMPOSITE_ZBUFFER, COMPOSITE_PAINTERS, COMPOSITE_XRAY):
         raise ValueError(f"unknown composite mode {mode}")
@@ -615,11 +653,11 @@ def composite_ref(color, depth, tr: TransPrep, prep, atlas: TextureAtlas,
         vis = ((bcx >= COVER_EPS) & (bcy >= COVER_EPS) & (bcz >= COVER_EPS)
                & (xi >= k[:, K_XLO]) & (xi < k[:, K_XHI])
                & (yi >= k[:, K_YLO]) & (yi < k[:, K_YHI]) & live)
+        izi = (bcx * a[:, C_IZA] + bcy * a[:, C_IZB]) + bcz * a[:, C_IZC]
         if zactive:
-            izi = (bcx * a[:, C_IZA] + bcy * a[:, C_IZB]) + bcz * a[:, C_IZC]
             vis = vis & (izi > depth)
-        u = _interp3(bcx, bcy, bcz, a[:, C_U0], a[:, C_U1], a[:, C_U2])
-        v = _interp3(bcx, bcy, bcz, a[:, C_VV0], a[:, C_VV1], a[:, C_VV2])
+        u, v = _face_uv(bcx, bcy, bcz, lambda c: a[:, c],
+                        izi if perspective else None)
         textured = tid >= 0
         texel = atlas.data[_texel_index(
             atlas, torch.clamp(tid, min=0).expand(n, height, width),
@@ -678,10 +716,12 @@ def composite(color, depth, tr: TransPrep, prep, atlas: TextureAtlas,
     kernel, which updates `color` in place; CPU tensors run the plain
     twin.  Returns the colour plane."""
     shading, mode = int(settings.shading), composite_mode(settings)
+    persp = not settings.affine_textures
     if color.is_cuda:
         from . import _cuda
         return _cuda.raster_composite(color, depth, tr, prep, atlas,
-                                      shading, mode)
+                                      shading, mode, perspective=persp)
     if color.device.type != "cpu":
         raise ValueError(f"unsupported device {color.device}")
-    return composite_ref(color, depth, tr, prep, atlas, shading, mode)
+    return composite_ref(color, depth, tr, prep, atlas, shading, mode,
+                         perspective=persp)

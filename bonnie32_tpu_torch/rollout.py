@@ -4,11 +4,13 @@
 `step_and_render` ticks every instance, updates its character camera and
 renders its view through models/scene_flat.render_level_flat — for CUDA
 tensors the visibility, resolve, composite and sky kernels of
-csrc/raster.cu, routed by the settings (z-buffer, painter's, x-ray), the
-level's transparent faces and its skybox (ops/skybox.py: the in-kernel
-sky where `sky_kernel_ok` allows it, else the sky-buffer route).  The
-sequential per-instance renderer of the JAX package and every other
-non-slice configuration are not ported and raise.
+csrc/raster.cu, routed by the settings (z-buffer, painter's, x-ray,
+affine or perspective-correct UVs, the editor's wireframes), the level's
+transparent faces and placed assets, and its skybox (ops/skybox.py: the
+in-kernel sky where `sky_kernel_ok` allows it, else the sky-buffer
+route).  Any frame size runs.  The sequential per-instance renderer of
+the JAX package, and the configurations only it draws, are not ported
+and raise (scene_flat.check_slice).
 """
 
 from typing import NamedTuple
@@ -31,10 +33,15 @@ class RolloutEnv(NamedTuple):
     sky: object = None      # ops.skybox.SkyTables, or None (no skybox)
 
 
-def build_env(level, textures, resolve, light_specs=None, flat: bool = True,
+def build_env(level, textures, resolve, light_specs=None,
+              asset_library=None, user_textures=None, flat: bool = True,
               device=None) -> RolloutEnv:
     """Compile `level` for the flat kernel path on `device` (default: the
-    card; the tests pass device="cpu")."""
+    card; the tests pass device="cpu"); with an `asset_library`, its
+    placed objects draw after the rooms (scene_flat.compile_level_flat).
+    `light_specs` are the caller's, as in the JAX package: placed Light
+    components add none by themselves (models.scene.collect_scene_lights
+    lists them)."""
     device = resolve_device(device)
     if not flat:
         raise NotImplementedError(
@@ -43,7 +50,9 @@ def build_env(level, textures, resolve, light_specs=None, flat: bool = True,
     sky = (sky_ops.build_sky_tables(sky_cfg, device=device) if sky_cfg
            else None)
     fscene, fstatic = scene_flat.compile_level_flat(
-        level, textures, resolve, light_specs=light_specs, device=device)
+        level, textures, resolve, light_specs=light_specs,
+        asset_library=asset_library, user_textures=user_textures,
+        device=device)
     return RolloutEnv(grid=col.compile_collision(level, device=device),
                       params=col.player_params(level, device=device),
                       flat=fscene, flat_static=fstatic, sky=sky)
@@ -69,10 +78,6 @@ def step_and_render(states: st.GameState, env: RolloutEnv,
     (I, H, W))."""
     if not isinstance(env, RolloutEnv):
         raise NotImplementedError("only the flat kernel env is ported")
-    if height % 8:
-        raise NotImplementedError(
-            "the flat kernel path needs height % 8 == 0, as in the JAX "
-            "package")
     states = stp.tick(states, env.grid, env.params, actions, dt)
     cams = stp.character_camera(states, env.params)
     return states, render_cameras(env, cams, settings, height, width)
@@ -81,9 +86,11 @@ def step_and_render(states: st.GameState, env: RolloutEnv,
 def render_cameras(env: RolloutEnv, cams, settings: RasterSettings,
                    height: int = HEIGHT, width: int = WIDTH):
     """The frames of `cams` ((I,) CameraArrays) in the env's level, over
-    its sky if it has one: the render half of `step_and_render`."""
+    its sky if it has one: the render half of `step_and_render`.  Under
+    `wireframe_overlay` no sky is drawn, as on the JAX kernel path (its
+    sequential renderer draws the sky under the overlay)."""
     kw = {}
-    if env.sky is not None:
+    if env.sky is not None and not settings.wireframe_overlay:
         if sky_ops.sky_kernel_ok(env.sky, env.flat_static, settings):
             # the resolve kernel draws the sky behind the faces; stars
             # land afterwards on the pixels still at depth 0

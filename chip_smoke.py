@@ -11,9 +11,10 @@ the JAX package.  In order:
      source into build/torch_kernels/ (one nvcc each, started together,
      sm_90a), printing ptxas' register report;
   2. builds the Cave-size level of tests/torch_scenes.py in code, its
-     transparent variant (20 faces glazed with every PS1 blend mode), and
-     the open-air level and its transparent variant under the night sky
-     and the two-range sunset sky;
+     transparent variant (20 faces glazed with every PS1 blend mode), the
+     same room with a two-part asset placed twice (lit by its Light
+     components), and the open-air level and its transparent variant
+     under the night sky and the two-range sunset sky;
   3. kernel vs plain: N=8 instances at 320x240 after one tick — on the
      opaque level the visibility + resolve kernels, on the transparent
      level the composite kernel in z-buffer and x-ray mode and the
@@ -21,7 +22,11 @@ the JAX package.  In order:
      inputs: 0 differing pixels in colour, depth, winner and barycentric
      planes; keyed faces present; every non-opaque blend mode draws.
      The same kernels once more at 150x100, which no tile shape divides
-     (ragged right and bottom tiles).  The binning (`raster_bin`, which
+     (ragged right and bottom tiles).  The perspective-UV instantiations
+     (affine_textures off) of the visibility (z-buffer and painter's),
+     resolve (word and sky-fused) and composite (z-buffer, painter's,
+     x-ray) kernels against their twins, 0 differing pixels, each frame
+     also different from the affine kernels'.  The binning (`raster_bin`, which
      the visibility and composite wrappers launch first): its mask words
      against `tile_bins_ref`, exact, for the kept faces in z-buffer and in
      painter's order, the transparent list and the x-ray list, and its
@@ -46,16 +51,24 @@ the JAX package.  In order:
      visibility and one sky-fused resolve a frame, no `raster_sky`), its
      transparent variant (sky-buffer route: `raster_sky`, visibility,
      resolve over the plane, composite), and x-ray and painter's over the
-     sunset sky.  The launch counters are reset just before each counted
-     run and read just after.  Checks one launch per frame of each kernel
+     sunset sky; then perspective UVs on the transparent level (z-buffer,
+     painter's, x-ray) and on the open-air night level (the sky-fused
+     resolve), the editor's default settings (backface wires) on the
+     Cave-size level, the wireframe overlay alone on the transparent
+     level (no kernel), and the level with the placed assets.  The launch
+     counters are reset just before each counted run and read just
+     after.  Checks one launch per frame of each kernel
      the path routes through (and one `raster_bin` per visibility and per
      composite launch) and none of the others, finite states,
-     >= 25% coverage in every instance's last frame, distinct instances,
+     >= 25% coverage in every instance's last frame (0.5% for the
+     overlay's edges), distinct instances,
      and that the last frame of 8 instances equals the plain render (over
      a sky: in the pixel classes above, with one RGB555 step allowed
      where a blended face lies over a sky pixel that is one step off);
-  5. times (CUDA events) the frames, the stages of the opaque and the
-     transparent frame on a replay of the same frames (the second of two
+  5. times (CUDA events) the frames, the stages of the opaque, the
+     transparent, the open-air, the editor (the wireframe pass a stage of
+     its own), the overlay and the asset frames on a replay of the same
+     frames (the second of two
      replays, so that no stage pays for the allocator's growth), and each
      kernel beside its plain twin at the main path's shapes, with the bound
      (the least time the card could take: bytes over 3.35 TB/s or f32
@@ -72,13 +85,19 @@ the JAX package.  In order:
      the live entries per instance and the mean and maximum number of
      entries per tile of each list.
 
-The last two lines of standard output are one JSON object with the
-kernels' measurements, then {"ok": true, "device": {...}}.  Any failed
+ptxas' register count of every kernel instantiation is printed as one
+JSON object after the build.  The last two lines of standard output are
+one JSON object with the kernels' measurements (the perspective
+instantiations as rows of their own), then {"ok": true, "device":
+{...}}.  Any failed
 check raises, so the exit code is not 0 and no result line is printed.
 """
 
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -110,6 +129,13 @@ F32_FMA_OPS_S = 67e12
 # this run's data needs (keyed UVs and overdraw not counted).
 OPS_COVER = 20
 OPS_PIPELINE = 80
+# Perspective-correct UVs on top of the affine pipeline, per drawn pixel:
+# u/z and v/z (12 multiplies, 4 adds) and the select of the divisor, two
+# divides counted as one operation each, less the affine UV's 10; resolve
+# also interpolates the winner's 1/z (5), which OPS_COVER already counts
+# for the composites.
+OPS_PERSPECTIVE = 9
+OPS_IZI = 5
 # The sky, per pixel it shows on and no mountain covers: the view ray
 # (a square root, three divides, nine multiplies and six adds; the
 # column's and row's terms are per tile), acos, the gradient's divide,
@@ -147,6 +173,31 @@ def _fail(msg):
     raise RuntimeError(f"chip_smoke: {msg}")
 
 
+def ptxas_registers(log):
+    """{kernel: registers} from nvcc's -Xptxas -v report, the names
+    demangled by c++filt where it exists, argument lists dropped."""
+    regs, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry is not None:
+            regs[entry] = int(m.group(1))
+            entry = None
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(regs),
+                               capture_output=True, text=True,
+                               check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        names = list(regs)
+    if len(names) != len(regs):
+        names = list(regs)
+    return {n.replace("(anonymous namespace)::", "").split("(")[0]: r
+            for n, r in zip(names, regs.values())}
+
+
 def main():
     import torch
 
@@ -169,13 +220,18 @@ def run(dev):
     from bonnie32_tpu_torch import rollout
     from bonnie32_tpu_torch.config import RasterSettings
     from bonnie32_tpu_torch.game import step as stp
+    from bonnie32_tpu_torch.models import asset as A
     from bonnie32_tpu_torch.models import level as L
+    from bonnie32_tpu_torch.models import mesh as M
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.models import user_texture as U
     from bonnie32_tpu_torch.models import scene_flat
     from bonnie32_tpu_torch.models import skybox as S
     from bonnie32_tpu_torch.ops import _cuda
     from bonnie32_tpu_torch.ops import gather as tg
     from bonnie32_tpu_torch.ops import raster_batch as rb
     from bonnie32_tpu_torch.ops import skybox as sky_ops
+    from bonnie32_tpu_torch.ops import wireframe as wf
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -190,15 +246,32 @@ def run(dev):
               flush=True)
 
     t0 = time.perf_counter()
-    _cuda.build(verbose=True)
+    with contextlib.redirect_stdout(io.StringIO()) as build_log:
+        _cuda.build(verbose=True)
+    print(build_log.getvalue())
     print(f"kernel build (nvcc, sm_90a): "
           f"{time.perf_counter() - t0:.2f} s {card}")
+    registers = ptxas_registers(build_log.getvalue())
+    print("registers (ptxas): " + json.dumps(registers))
 
     game = RasterSettings.game()
     xray = dataclasses.replace(game, xray_mode=True)
     painters = dataclasses.replace(game, use_zbuffer=False)
+    persp = dataclasses.replace(game, affine_textures=False)
+    persp_xray = dataclasses.replace(xray, affine_textures=False)
+    persp_painters = dataclasses.replace(painters, affine_textures=False)
+    editor = RasterSettings()               # backface wires, the default
+    overlay = RasterSettings(wireframe_overlay=True)
     level = ts.cave_size_level(L)
     env = rollout.build_env(level, ts.textures(), ts.resolver, device=dev)
+    # the placed assets: two placements of a two-part asset, lit by its
+    # Light components (point lights)
+    alevel = ts.asset_level(L)
+    alib = ts.asset_library(A, M)
+    aenv = rollout.build_env(
+        alevel, ts.textures(), ts.resolver,
+        light_specs=scene.collect_scene_lights(alevel, alib),
+        asset_library=alib, user_textures=ts.user_textures(U), device=dev)
     tlevel = ts.transparent_cave_level(L)
     tenv = rollout.build_env(tlevel, ts.transparent_textures(), ts.resolver,
                              device=dev)
@@ -219,6 +292,10 @@ def run(dev):
             tlv, rollout.build_env(tlv, ts.transparent_textures(),
                                    ts.resolver, device=dev))
     slevel, senv, stlevel, stenv = sky_envs["night"]
+    print(f"asset level: {aenv.flat_static.n_faces} faces in "
+          f"{aenv.flat_static.n_draw_groups} draw groups, "
+          f"{aenv.flat_static.n_textures} textures, "
+          f"{int(aenv.flat.lights.kind.ne(0).sum())} lights")
     print(f"open-air level: {senv.flat_static.n_faces} faces; night sky: "
           f"{senv.sky.face_table.shape[0]} mountain faces, "
           f"{senv.sky.star_dirs.shape[0]} stars; sunset sky: "
@@ -248,12 +325,12 @@ def run(dev):
                                 painters=not settings.use_zbuffer,
                                 group_id=e.flat.f_group)
 
-    def drawn_mask(color_like, depth, t, p, atlas, mode):
+    def drawn_mask(color_like, depth, t, p, atlas, mode, persp=False):
         """Pixels the composite of `t` draws: composited onto a plane of
         alpha 0 (whether a pixel draws does not depend on what lies under
         it), every drawn word has alpha 255."""
         c = rb.composite_ref(torch.zeros_like(color_like), depth, t, p,
-                             atlas, shading, mode)
+                             atlas, shading, mode, perspective=persp)
         return ((c >> 24) & 255) == 255
 
     def plain_render(e, states, settings):
@@ -261,15 +338,26 @@ def run(dev):
         rollout.render_cameras routes.  Returns (colour, classes): over a
         sky, `classes` holds the masks `face` (an opaque face drew),
         `mtn` (a mountain covers), `blended` (the composite drew) and the
-        number of star pixels; without a sky it is None."""
+        number of star pixels; without a sky it is None.  The wireframe
+        passes are torch code, the same on both sides: here they show
+        that the frame routes them (after every solid pass, against its
+        depth plane; alone on a cleared frame in overlay mode)."""
+        n = states.pos.shape[0]
+        cams = stp.character_camera(states, e.params)
+        if settings.wireframe_overlay:
+            clear = torch.zeros((n, HEIGHT, WIDTH), dtype=torch.int32,
+                                device=dev)
+            return wf.render_wireframes_flat(
+                clear, torch.zeros(clear.shape, device=dev), e.flat, cams,
+                settings), None
         surf = surf_for(e, states, settings)
         atlas = e.flat.atlas
-        n = states.pos.shape[0]
         mode = rb.composite_mode(settings)
+        persp = not settings.affine_textures
+        wires = settings.backface_cull and settings.backface_wireframe
         sky = e.sky
         plane = stars = mtn = None
         if sky is not None:
-            cams = stp.character_camera(states, e.params)
             scal = sky_ops.prep_sky_scal(sky, cams, WIDTH, HEIGHT)
             plane = sky_ops.sky_plane_ref(sky, scal, HEIGHT, WIDTH)
             mtn = sky_ops.mountain_mask(sky, scal, HEIGHT, WIDTH)
@@ -286,16 +374,22 @@ def run(dev):
             tr = rb.prep_xray(surf, e.flat.f_group, settings.use_zbuffer)
             tables = rb.face_tables(surf, atlas, WIDTH, HEIGHT)
             out = rb.composite_ref(color, depth, tr, tables, atlas, shading,
-                                   mode)
+                                   mode, perspective=persp)
+            if wires:
+                out = wf.render_wireframes_flat(out, depth, e.flat, cams,
+                                                settings)
             if sky is None:
                 return out, None
             return out, dict(
                 face=torch.zeros_like(mtn), mtn=mtn, stars=stars,
-                blended=drawn_mask(color, depth, tr, tables, atlas, mode))
+                blended=drawn_mask(color, depth, tr, tables, atlas, mode,
+                                   persp))
         prep = prep_for(e, surf, settings)
         planes = rb.visibility_ref(prep, atlas, HEIGHT, WIDTH,
-                                   painters=not settings.use_zbuffer)
-        color = rb.resolve_ref(prep, atlas, *planes[1:], shading, 0)
+                                   painters=not settings.use_zbuffer,
+                                   perspective=persp)
+        color = rb.resolve_ref(prep, atlas, *planes[1:], shading, 0,
+                               perspective=persp)
         face = color != 0          # a drawn word has alpha 255
         if sky is not None:
             color = torch.where(face, color, plane)
@@ -308,9 +402,13 @@ def run(dev):
         if e.flat_static.transparent_idx:
             tr = rb.prep_transparent(surf, e.flat_static.transparent_idx)
             if sky is not None:
-                blended = drawn_mask(color, planes[0], tr, prep, atlas, mode)
+                blended = drawn_mask(color, planes[0], tr, prep, atlas, mode,
+                                     persp)
             color = rb.composite_ref(color, planes[0], tr, prep, atlas,
-                                     shading, mode)
+                                     shading, mode, perspective=persp)
+        if wires:
+            color = wf.render_wireframes_flat(color, planes[0], e.flat, cams,
+                                              settings)
         if sky is None:
             return color, None
         return color, dict(face=face, mtn=mtn, stars=stars, blended=blended)
@@ -549,6 +647,67 @@ def run(dev):
         _fail("nothing was drawn on the ragged frame")
     phase_done("raster_bin vs plain, kernels on a ragged frame")
 
+    # ---- the perspective instantiations vs their twins, N_CHECK ----
+    PAINT = rb.COMPOSITE_PAINTERS
+    pk = _cuda.raster_visibility(tprep, tatlas, HEIGHT, WIDTH,
+                                 perspective=True)
+    pp = rb.visibility_ref(tprep, tatlas, HEIGHT, WIDTH, perspective=True)
+    pkc = _cuda.raster_resolve(tprep, tatlas, *pk[1:], shading, 0,
+                               perspective=True)
+    ppc = rb.resolve_ref(tprep, tatlas, *pp[1:], shading, 0,
+                         perspective=True)
+    pkz = _cuda.raster_composite(pkc.clone(), pk[0], tr, tprep, tatlas,
+                                 shading, ZBUF, perspective=True)
+    ppz = rb.composite_ref(ppc, pp[0], tr, tprep, tatlas, shading, ZBUF,
+                           perspective=True)
+    qk = _cuda.raster_visibility(pprep, tatlas, HEIGHT, WIDTH, painters=True,
+                                 perspective=True)
+    qp = rb.visibility_ref(pprep, tatlas, HEIGHT, WIDTH, painters=True,
+                           perspective=True)
+    qkc = _cuda.raster_resolve(pprep, tatlas, *qk[1:], shading, 0,
+                               perspective=True)
+    qpc = rb.resolve_ref(pprep, tatlas, *qp[1:], shading, 0,
+                         perspective=True)
+    qkz = _cuda.raster_composite(qkc.clone(), qk[0], tr, pprep, tatlas,
+                                 shading, PAINT, perspective=True)
+    qpz = rb.composite_ref(qpc, qp[0], tr, pprep, tatlas, shading, PAINT,
+                           perspective=True)
+    pkx = _cuda.raster_composite(clear.clone(), zero_depth, xtr, xprep,
+                                 tatlas, shading, XRAY, perspective=True)
+    ppx = rb.composite_ref(clear, zero_depth, xtr, xprep, tatlas, shading,
+                           XRAY, perspective=True)
+    torch.cuda.synchronize()
+    pdiffs = {f"z-buffer {k}": v for k, v in differing(pk, pp,
+                                                       names).items()}
+    pdiffs.update({f"painter's {k}": v for k, v in differing(
+        qk, qp, names).items()})
+    pdiffs.update({"resolve": int((pkc != ppc).sum()),
+                   "resolve, painter's": int((qkc != qpc).sum()),
+                   "composite": int((pkz != ppz).sum()),
+                   "composite, painter's": int((qkz != qpz).sum()),
+                   "xray": int((pkx != ppx).sum())})
+    vs_affine = {"resolve": int((pkc != base).sum()),
+                 "composite": int((pkz != k_comp).sum()),
+                 "xray": int((pkx != k_xray).sum())}
+    print(f"perspective kernels vs plain, transparent level, N={N_CHECK} "
+          f"{WIDTH}x{HEIGHT}: differing pixels {pdiffs}; pixels that "
+          f"differ from the affine kernels' {vs_affine}; painter's depth "
+          f"plane cleared: {not bool(qk[0].any())}")
+    if any(pdiffs.values()):
+        _fail(f"perspective kernels disagree with their twins: {pdiffs}")
+    if min(vs_affine.values()) == 0 or bool(qk[0].any()):
+        _fail("a perspective path drew the affine frame, or the painter's "
+              "visibility wrote depth")
+    err["raster_visibility_perspective"] = max(
+        float((pk[i] - pp[i]).abs().max()) for i in (0, 2, 3))
+    err["raster_resolve_perspective"] = int(
+        (pkc.long() - ppc.long()).abs().max())
+    err["raster_composite_perspective"] = int(
+        (pkz.long() - ppz.long()).abs().max())
+    err["raster_composite_xray_perspective"] = int(
+        (pkx.long() - ppx.long()).abs().max())
+    phase_done("perspective kernels vs plain")
+
     # ---- K5: the sky kernels vs their plain twins, N_CHECK instances ----
     sky_share = {}
     for sky_name, (lv, e, _, _) in sky_envs.items():
@@ -593,6 +752,22 @@ def run(dev):
                 f"N={N_CHECK} {size}", k_fused, p_fused,
                 dict(face=svis[1] >= 0, mtn=mtn, blended=none,
                      stars=n_stars), 0)
+            if hw == (HEIGHT, WIDTH):
+                # the perspective instantiation of the sky-fused resolve
+                pvis = _cuda.raster_visibility(sprep, e.flat.atlas, *hw,
+                                               perspective=True)
+                kp = _cuda.raster_resolve(sprep, e.flat.atlas, *pvis[1:],
+                                          shading, bg, perspective=True)
+                pp_ = rb.resolve_ref(sprep, e.flat.atlas, *pvis[1:], shading,
+                                     bg, perspective=True)
+                sky_share[sky_name, "fused, perspective", size] = \
+                    sky_classes(
+                        f"raster_resolve + sky, perspective, vs plain, "
+                        f"{sky_name} sky, N={N_CHECK} {size}", kp, pp_,
+                        dict(face=pvis[1] >= 0, mtn=mtn, blended=none,
+                             stars=n_stars), 0)
+                err[f"raster_resolve_sky_perspective_{sky_name}"] = int(
+                    channel_step(kp, pp_).max())
             plane_vs_fused = int((k_over != k_fused).sum())
             print(f"resolve over the raster_sky plane vs resolve with the "
                   f"sky fused, {sky_name} sky, {size}: {plane_vs_fused} "
@@ -678,6 +853,8 @@ def run(dev):
         ms = ev[0].elapsed_time(ev[1]) / n_frames
         cover = float((((fbs.color >> 24) & 255) == 255).float()
                       .mean(dim=(1, 2)).min())
+        # the overlay draws edges only: a few per cent of the frame
+        least = 0.005 if settings.wireframe_overlay else 0.25
         print(f"main path, {label}: N={N_MAIN} {WIDTH}x{HEIGHT}, "
               f"{n_frames} frames, launches {counts}, min coverage "
               f"{cover:.3f}")
@@ -686,7 +863,7 @@ def run(dev):
             if counts[name] != per_frame * n_frames:
                 _fail(f"{label}: {name} launched {counts[name]} times in "
                       f"{n_frames} frames")
-        if cover < 0.25:
+        if cover < least:
             _fail(f"{label}: an instance covers only {cover:.3f} of its "
                   f"last frame")
         for name in ("pos", "vel", "vertical_velocity", "facing",
@@ -695,7 +872,8 @@ def run(dev):
                 _fail(f"{label}: state {name} is not finite")
         if fbs.color.shape != (N_MAIN, HEIGHT, WIDTH):
             _fail(f"{label}: frame shape {tuple(fbs.color.shape)}")
-        if settings.xray_mode or not settings.use_zbuffer:
+        if (settings.xray_mode or not settings.use_zbuffer
+                or settings.wireframe_overlay):
             if bool(fbs.depth.any()):
                 _fail(f"{label}: the depth plane is not the cleared one")
         distinct = int((fbs.color != fbs.color[:1]).flatten(1).any(1).sum())
@@ -756,6 +934,28 @@ def run(dev):
         sunenv, sunlevel, painters, MODE_FRAMES, 1,
         {ksky: 1, vis: 1, res: 1, comp: 1, kbin: 2},
         "painter's, sunset sky")
+    # perspective-correct UVs: every perspective instantiation
+    runs["persp"] = main_path(tenv, tlevel, persp, MODE_FRAMES, 1,
+                              {vis: 1, res: 1, comp: 1, kbin: 2},
+                              "perspective, transparent level")
+    runs["persp_painters"] = main_path(tenv, tlevel, persp_painters,
+                                       MODE_FRAMES, 1,
+                                       {vis: 1, res: 1, comp: 1, kbin: 2},
+                                       "perspective, painter's")
+    runs["persp_xray"] = main_path(tenv, tlevel, persp_xray, MODE_FRAMES, 1,
+                                   {comp: 1, kbin: 1}, "perspective, x-ray")
+    runs["persp_sky"] = main_path(senv, slevel, persp, MODE_FRAMES, 1,
+                                  {vis: 1, res: 1, kbin: 1},
+                                  "perspective, open-air, night sky")
+    # the editor: backface wires over the one draw group (torch code after
+    # the kernels), the front-edge overlay alone (no kernel at all)
+    runs["editor"] = main_path(env, level, editor, FRAMES, WARMUP,
+                               {vis: 1, res: 1, kbin: 1},
+                               "editor default, backface wires")
+    runs["overlay"] = main_path(tenv, tlevel, overlay, FRAMES, WARMUP, {},
+                                "wireframe overlay, transparent level")
+    runs["assets"] = main_path(aenv, alevel, game, FRAMES, WARMUP,
+                               {vis: 1, res: 1, kbin: 1}, "placed assets")
 
     # ---- timing: frame stages, kernels and their plain twins ----
     # Each stage between synchronizes: the eager stages are launch-bound,
@@ -771,35 +971,54 @@ def run(dev):
         torch.cuda.synchronize()
         return out, evs[0].elapsed_time(evs[1]) / FRAMES
 
-    def replay(e, key):
+    def replay(e, key, settings=game):
         """The stages of the counted frames of run `key`, replayed, routed
-        as rollout.render_cameras routes under `game` settings.  Returns
-        the stage sums and the last frame's intermediates."""
+        as rollout.render_cameras routes under `settings`.  Returns the
+        stage sums and the last frame's intermediates."""
         _, _, states, acts = runs[key]
         idx = e.flat_static.transparent_idx
         sky = e.sky
+        persp = not settings.affine_textures
+        cmode = rb.composite_mode(settings)
         in_kernel = sky is not None and sky_ops.sky_kernel_ok(
-            sky, e.flat_static, game)
+            sky, e.flat_static, settings)
+        back_wires = settings.backface_cull and settings.backface_wireframe
         names = ["tick", "surfaces_prep"]
-        if sky is not None and not in_kernel:
-            names += ["sky_plane", "stars"]
-        names += ["visibility", "resolve"]
-        if in_kernel and sky.stars_enabled:
-            names += ["stars"]
-        if idx:
-            names += ["composite"]
+        if settings.wireframe_overlay:
+            names += ["wires"]
+        else:
+            if sky is not None and not in_kernel:
+                names += ["sky_plane", "stars"]
+            names += ["visibility", "resolve"]
+            if in_kernel and sky.stars_enabled:
+                names += ["stars"]
+            if idx:
+                names += ["composite"]
+            if back_wires:
+                names += ["wires"]
         stage = dict.fromkeys(names, 0.0)
         last = {}
         for f in range(FRAMES):
             states, ms = timed(lambda s=states, a=acts[f]: stp.tick(
                 s, e.grid, e.params, a, 1.0 / 60.0))
             stage["tick"] += ms
+            if settings.wireframe_overlay:
+                cams, ms = timed(lambda s=states: stp.character_camera(
+                    s, e.params))
+                stage["surfaces_prep"] += ms
+                none = torch.zeros((N_MAIN, HEIGHT, WIDTH), dtype=torch.int32,
+                                   device=dev)
+                _, ms = timed(lambda m=cams, c=none: wf.render_wireframes_flat(
+                    c, torch.zeros(c.shape, device=dev), e.flat, m,
+                    settings))
+                stage["wires"] += ms
+                continue
 
             def surfaces_prep(s=states):
                 cams = stp.character_camera(s, e.params)
-                surf = scene_flat.build_surfaces_flat(e.flat, cams, game,
+                surf = scene_flat.build_surfaces_flat(e.flat, cams, settings,
                                                       WIDTH, HEIGHT)
-                return (prep_for(e, surf, game),
+                return (prep_for(e, surf, settings),
                         rb.prep_transparent(surf, idx) if idx else None,
                         cams, sky_ops.prep_sky_scal(sky, cams, WIDTH, HEIGHT)
                         if sky is not None else None)
@@ -816,11 +1035,13 @@ def run(dev):
                     c, None, sky, m, time=sky.time))
                 stage["stars"] += ms
             planes, ms = timed(lambda p=prep: _cuda.raster_visibility(
-                p, e.flat.atlas, HEIGHT, WIDTH))
+                p, e.flat.atlas, HEIGHT, WIDTH,
+                painters=not settings.use_zbuffer, perspective=persp))
             stage["visibility"] += ms
             color, ms = timed(lambda p=prep, q=planes, g=bg:
                               _cuda.raster_resolve(p, e.flat.atlas, *q[1:],
-                                                   shading, g))
+                                                   shading, g,
+                                                   perspective=persp))
             stage["resolve"] += ms
             if in_kernel and sky.stars_enabled:
                 color, ms = timed(lambda c=color, q=planes, m=cams:
@@ -831,8 +1052,13 @@ def run(dev):
                 _, ms = timed(lambda c=color, p=prep, q=planes, t=tr:
                               _cuda.raster_composite(
                                   c, q[0], t, p, e.flat.atlas, shading,
-                                  ZBUF))
+                                  cmode, perspective=persp))
                 stage["composite"] += ms
+            if back_wires:
+                color, ms = timed(lambda c=color, q=planes, m=cams:
+                                  wf.render_wireframes_flat(
+                                      c, q[0], e.flat, m, settings))
+                stage["wires"] += ms
             last = dict(prep=prep, planes=planes, color=color, tr=tr,
                         scal=scal)
         return stage, last
@@ -841,13 +1067,18 @@ def run(dev):
     # still grow or free its pool (a stall of tens of ms that landed on
     # whichever stage asked for memory)
     stages = {}
-    for label, e, key in (("opaque", env, "opaque"),
-                          ("transparent", tenv, "transparent"),
-                          ("open-air, night sky", senv, "sky"),
-                          ("transparent open-air, night sky", stenv,
-                           "sky_transparent")):
-        replay(e, key)
-        stages[label], kept = replay(e, key)
+    for label, e, key, st in (
+            ("opaque", env, "opaque", game),
+            ("transparent", tenv, "transparent", game),
+            ("open-air, night sky", senv, "sky", game),
+            ("transparent open-air, night sky", stenv, "sky_transparent",
+             game),
+            ("editor default, backface wires", env, "editor", editor),
+            ("wireframe overlay, transparent level", tenv, "overlay",
+             overlay),
+            ("placed assets", aenv, "assets", game)):
+        replay(e, key, st)
+        stages[label], kept = replay(e, key, st)
         if key == "transparent":
             last = kept
         elif key == "sky":
@@ -950,6 +1181,32 @@ def run(dev):
                                     part(xtr, sl), part(xprep, sl), tatlas,
                                     shading, XRAY))
 
+    # the perspective instantiations on the same inputs
+    vis_p, res_p = "raster_visibility_perspective", "raster_resolve_perspective"
+    comp_p = "raster_composite_perspective"
+    xray_p = "raster_composite_xray_perspective"
+    pplanes = _cuda.raster_visibility(prep, tatlas, HEIGHT, WIDTH,
+                                      perspective=True)
+    ms[vis_p] = kernel_ms(lambda: _cuda.raster_visibility(
+        prep, tatlas, HEIGHT, WIDTH, perspective=True))
+    plain[vis_p] = chunked_plain_ms(lambda sl: rb.visibility_ref(
+        part(prep, sl), tatlas, HEIGHT, WIDTH, perspective=True))
+    ms[res_p] = kernel_ms(lambda: _cuda.raster_resolve(
+        prep, tatlas, *pplanes[1:], shading, 0, perspective=True))
+    plain[res_p] = chunked_plain_ms(lambda sl: rb.resolve_ref(
+        part(prep, sl), tatlas, *(p[sl] for p in pplanes[1:]), shading, 0,
+        perspective=True))
+    ms[comp_p] = kernel_ms(lambda: _cuda.raster_composite(
+        work, pplanes[0], tr, prep, tatlas, shading, ZBUF, perspective=True))
+    plain[comp_p] = chunked_plain_ms(lambda sl: rb.composite_ref(
+        base[sl], pplanes[0][sl], part(tr, sl), part(prep, sl), tatlas,
+        shading, ZBUF, perspective=True))
+    ms[xray_p] = kernel_ms(lambda: _cuda.raster_composite(
+        xwork, zero_depth, xtr, xprep, tatlas, shading, XRAY,
+        perspective=True))
+    plain[xray_p] = chunked_plain_ms(lambda sl: rb.composite_ref(
+        clear[sl], zero_depth[sl], part(xtr, sl), part(xprep, sl), tatlas,
+        shading, XRAY, perspective=True))
     phase_done("kernel and plain timings, earlier kernels")
 
     # the sky at N_MAIN: the open-air run's last replayed frame (night,
@@ -974,6 +1231,15 @@ def run(dev):
     plain[fused] = chunked_plain_ms(lambda sl: rb.resolve_ref(
         part(sprep, sl), satlas, *(p[sl] for p in splanes[1:]), shading,
         sky_ops.SkyBackground(night, sscal[sl])))
+    fused_p = "raster_resolve_sky_perspective"
+    splanes_p = _cuda.raster_visibility(sprep, satlas, HEIGHT, WIDTH,
+                                        perspective=True)
+    ms[fused_p] = kernel_ms(lambda: _cuda.raster_resolve(
+        sprep, satlas, *splanes_p[1:], shading, sbg, perspective=True),
+        queued=True)
+    plain[fused_p] = chunked_plain_ms(lambda sl: rb.resolve_ref(
+        part(sprep, sl), satlas, *(p[sl] for p in splanes_p[1:]), shading,
+        sky_ops.SkyBackground(night, sscal[sl]), perspective=True))
     ms[ksky] = kernel_ms(lambda: _cuda.raster_sky(night, sscal, HEIGHT,
                                                   WIDTH), queued=True)
     plain[ksky] = chunked_plain_ms(lambda sl: sky_ops.sky_plane_ref(
@@ -1089,14 +1355,25 @@ def run(dev):
     won[row] = True
     bounds[res] = bound(int(won.sum()) * 4 * 20 + atlas_b + 16 * plane,
                         OPS_PIPELINE * int((win >= 0).sum()))
+    # perspective: visibility as above (keyed UVs are not counted); resolve
+    # reads three more columns of a won row (the corners' 1/z)
+    bounds[vis_p] = bounds[vis]
+    pwin = pplanes[1]
+    prow = (torch.arange(N_MAIN, device=dev)[:, None, None] * n_faces
+            + pwin.long())[pwin >= 0]
+    pwon = torch.zeros(N_MAIN * n_faces, dtype=torch.bool, device=dev)
+    pwon[prow] = True
+    bounds[res_p] = bound(int(pwon.sum()) * 4 * 23 + atlas_b + 16 * plane,
+                          (OPS_PIPELINE + OPS_PERSPECTIVE + OPS_IZI)
+                          * int((pwin >= 0).sum()))
 
     # pixels the composite drew: drawn words have alpha 255 and the plane
     # of zeros under them has none (whether a pixel draws does not depend
     # on the colour under it); with a zero depth plane every covered pixel
     # in front of the camera passes the z-test, keyed texels aside
-    def drawn(t, p, depth, mode):
+    def drawn(t, p, depth, mode, persp=False):
         c = _cuda.raster_composite(torch.zeros_like(clear), depth, t, p,
-                                   tatlas, shading, mode)
+                                   tatlas, shading, mode, perspective=persp)
         return int((((c >> 24) & 255) == 255).sum())
 
     def entry_bytes(t):
@@ -1114,6 +1391,17 @@ def run(dev):
         entry_bytes(xtr) + atlas_b + 8 * drawn_x,
         OPS_COVER * bbox_area(xprep, xtr.tctrl[..., rb.T_FID], live(xtr))
         + OPS_PIPELINE * drawn_x)
+    drawn_zp = drawn(tr, prep, pplanes[0], ZBUF, True)
+    bounds[comp_p] = bound(
+        entry_bytes(tr) + atlas_b + 8 * drawn_zp
+        + 4 * drawn(tr, prep, zero_depth, ZBUF, True),
+        OPS_COVER * bbox_area(prep, tr.tctrl[..., rb.T_FID], live(tr))
+        + (OPS_PIPELINE + OPS_PERSPECTIVE) * drawn_zp)
+    drawn_xp = drawn(xtr, xprep, zero_depth, XRAY, True)
+    bounds[xray_p] = bound(
+        entry_bytes(xtr) + atlas_b + 8 * drawn_xp,
+        OPS_COVER * bbox_area(xprep, xtr.tctrl[..., rb.T_FID], live(xtr))
+        + (OPS_PIPELINE + OPS_PERSPECTIVE) * drawn_xp)
 
     # The sky: 4 bytes written per pixel it shows on (its scalar table and
     # face table are a few KB an instance) against the operations counted
@@ -1229,6 +1517,22 @@ def run(dev):
         extra_bytes=int(swon.sum()) * 4 * 20 + satlas_b + 12 * plane
         + 4 * n_face_px,
         extra_ops=OPS_PIPELINE * n_face_px)
+    # the same with perspective UVs, from the perspective visibility
+    swin_p = splanes_p[1]
+    srow_p = (torch.arange(N_MAIN, device=dev)[:, None, None] * n_sfaces
+              + swin_p.long())[swin_p >= 0]
+    swon_p = torch.zeros(N_MAIN * n_sfaces, dtype=torch.bool, device=dev)
+    swon_p[srow_p] = True
+    shows_p = ((_cuda.raster_resolve(sprep, satlas, *splanes_p[1:], shading,
+                                     0, perspective=True) >> 24) & 255) == 0
+    sky_px[fused_p] = sky_work(night, sscal, shows_p)
+    n_face_px_p = plane - sky_px[fused_p][0]
+    del shows_p
+    bounds[fused_p] = sky_bound(
+        night, sscal, sky_px[fused_p],
+        extra_bytes=int(swon_p.sum()) * 4 * 23 + satlas_b + 12 * plane
+        + 4 * n_face_px_p,
+        extra_ops=(OPS_PIPELINE + OPS_PERSPECTIVE + OPS_IZI) * n_face_px_p)
     bounds[kgather] = bound(8 * gidx.numel() + nbytes(gtables["i32"]), 0)
     print(f"{fused}: with the night sky {ms[fused]:.3f} ms, the same launch "
           f"over a constant word {resolve_const_ms:.3f} ms; "
@@ -1276,7 +1580,14 @@ def run(dev):
                        ("sky", "open-air, night sky"),
                        ("sky_transparent", "transparent open-air, night sky"),
                        ("sky_xray", "x-ray, sunset sky"),
-                       ("sky_painters", "painter's, sunset sky")):
+                       ("sky_painters", "painter's, sunset sky"),
+                       ("persp", "perspective, transparent level"),
+                       ("persp_painters", "perspective, painter's"),
+                       ("persp_xray", "perspective, x-ray"),
+                       ("persp_sky", "perspective, open-air, night sky"),
+                       ("editor", "editor default, backface wires"),
+                       ("overlay", "wireframe overlay, transparent level"),
+                       ("assets", "placed assets")):
         f_ms = runs[key][1]
         print(f"frame, {label}: {f_ms:.3f} ms per batched frame of "
               f"{N_MAIN} instances = {N_MAIN * 1000.0 / f_ms:.1f} "
@@ -1287,8 +1598,9 @@ def run(dev):
               + ", ".join(f"{k} {v:.3f}" for k, v in stage.items())
               + f", sum {sum(stage.values()):.3f} {card}")
     with_bin = {vis: "opaque", "raster_visibility_painters": "painter's",
-                comp: "transparent", "raster_composite_xray": "x-ray"}
-    sky_kernels = (fused, ksky, "raster_sky_sunset", kgather)
+                comp: "transparent", "raster_composite_xray": "x-ray",
+                vis_p: "opaque", comp_p: "transparent", xray_p: "x-ray"}
+    sky_kernels = (fused, fused_p, ksky, "raster_sky_sunset", kgather)
     for name in ms:
         where = ("open-air level" if name in sky_kernels
                  else "transparent level")
@@ -1323,7 +1635,12 @@ def run(dev):
                                       + runs["sky_painters"][0][ksky]),
                 kgather: gather_counts[kgather],
                 # one per visibility and one per composite launch
-                kbin: t_counts[kbin]}
+                kbin: t_counts[kbin],
+                # the perspective instantiations: the perspective runs
+                vis_p: runs["persp"][0][vis], res_p: runs["persp"][0][res],
+                comp_p: runs["persp"][0][comp],
+                xray_p: runs["persp_xray"][0][comp],
+                fused_p: runs["persp_sky"][0][res]}
     counted_on = {vis: "transparent level", res: "transparent level",
                   comp: "transparent level",
                   "raster_visibility_painters": "painter's",
@@ -1333,7 +1650,12 @@ def run(dev):
                   "raster_sky_sunset": "x-ray and painter's, sunset sky",
                   kgather: "its entry point alone: on no main path, "
                            "nothing in the package calls it",
-                  kbin: "transparent level"}
+                  kbin: "transparent level",
+                  vis_p: "perspective, transparent level",
+                  res_p: "perspective, transparent level",
+                  comp_p: "perspective, transparent level",
+                  xray_p: "perspective, x-ray",
+                  fused_p: "perspective, open-air, night sky"}
     replaces = {vis: f"{JAX_RB}:859",
                 "raster_visibility_painters": f"{JAX_RB}:941",
                 res: f"{JAX_RB}:1098",
@@ -1341,10 +1663,15 @@ def run(dev):
                 "raster_composite_xray": f"{JAX_RB}:1713",
                 fused: f"{JAX_RB}:1525", ksky: f"{JAX_RB}:712",
                 "raster_sky_sunset": f"{JAX_RB}:712",
-                kgather: f"{JAX_GATHER}:60", kbin: f"{JAX_RB}:859"}
+                kgather: f"{JAX_GATHER}:60", kbin: f"{JAX_RB}:859",
+                vis_p: f"{JAX_RB}:1003", res_p: f"{JAX_RB}:1249",
+                comp_p: f"{JAX_RB}:1562", xray_p: f"{JAX_RB}:1713",
+                fused_p: f"{JAX_RB}:1249"}
     err[fused] = max(err["raster_resolve_sky_night"],
                      err["raster_resolve_sky_sunset"])
     err[ksky] = err["raster_sky_night"]
+    err[fused_p] = max(err["raster_resolve_sky_perspective_night"],
+                       err["raster_resolve_sky_perspective_sunset"])
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda",
          "source": GATHER_SRC if name == kgather else SRC,

@@ -6,13 +6,15 @@
 
 Each argument is TILE_W x TILE_H x rows per thread of the visibility kernel
 x rows per thread of the composite kernel, optionally followed by
-`:NAME=value,...` for further -DRASTER_NAME=value definitions.  Every shape
-is compiled (all nvcc processes at once), checked against the plain
-versions at N=8 — `raster_bin` and its work list, both visibility merges,
-resolve, the three composite modes, at 320x240 and at a ragged 150x100, 0
-differing elements wanted — and timed at N=1024, 320x240 on the
-transparent Cave-size level after one tick (CUDA events over 10 launches;
-a consumer's time includes its `raster_bin` launch).  Prints the card's
+`:NAME=value,...` for further -DRASTER_NAME=value definitions (e.g.
+`16x16x4x2:VIS_PERSP_THREADS=1024`, the register cap of the perspective
+visibility).  Every shape is compiled (all nvcc processes at once),
+checked against the plain versions at N=8 — `raster_bin` and its work
+list, both visibility merges affine and perspective, resolve, the three
+composite modes, at 320x240 and at a ragged 150x100, 0 differing elements
+wanted — and timed at N=1024, 320x240 on the transparent Cave-size level
+after one tick (CUDA events over 10 launches; a consumer's time includes
+its `raster_bin` launch), the perspective instantiations too.  Prints the card's
 name and power limit first.  Imports nothing of jax.
 """
 import dataclasses
@@ -148,10 +150,14 @@ def check(h, w):
         bad[name + " work"] = int(got.numel() != ref.numel()
                                   or (got != ref).any())
     for name, p, pt in (("vis", prep, False), ("vis painters", pprep, True)):
-        k = _cuda.raster_visibility(p, atlas, h, w, painters=pt)
-        r = rb.visibility_ref(p, atlas, h, w, painters=pt)
-        torch.cuda.synchronize()
-        bad[name] = sum(int((a != b).sum()) for a, b in zip(k, r))
+        for persp in (False, True):
+            k = _cuda.raster_visibility(p, atlas, h, w, painters=pt,
+                                        perspective=persp)
+            r = rb.visibility_ref(p, atlas, h, w, painters=pt,
+                                  perspective=persp)
+            torch.cuda.synchronize()
+            bad[name + (" persp" if persp else "")] = sum(
+                int((a != b).sum()) for a, b in zip(k, r))
     planes = _cuda.raster_visibility(prep, atlas, h, w)
     base = _cuda.raster_resolve(prep, atlas, *planes[1:], shading, 0)
     bad["resolve"] = int((base != rb.resolve_ref(
@@ -215,6 +221,17 @@ for cfg in CONFIGS:
         t["comp z, no live entry"] = kernel_ms(lambda: _cuda.raster_composite(
             work, planes[0], tr._replace(tctrl=dead), prep, atlas, shading,
             0))
+        # the perspective instantiations on the same inputs
+        t["vis persp"] = kernel_ms(lambda: _cuda.raster_visibility(
+            prep, atlas, H, W, perspective=True))
+        t["vis painters persp"] = kernel_ms(lambda: _cuda.raster_visibility(
+            pprep, atlas, H, W, painters=True, perspective=True))
+        t["resolve persp"] = kernel_ms(lambda: _cuda.raster_resolve(
+            prep, atlas, *planes[1:], shading, 0, perspective=True))
+        t["comp z persp"] = kernel_ms(lambda: _cuda.raster_composite(
+            work, planes[0], tr, prep, atlas, shading, 0, perspective=True))
+        t["comp xray persp"] = kernel_ms(lambda: _cuda.raster_composite(
+            xwork, zd, xtr, xprep, atlas, shading, 2, perspective=True))
         del planes, color, work, xwork, zd
         print("  ms: " + ", ".join(f"{k} {v:.3f}" for k, v in t.items()),
               flush=True)

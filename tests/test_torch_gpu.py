@@ -19,7 +19,10 @@ sky pixels (acos, atan2, sin and pow differ by ulps between nvcc's and
 torch's libraries), at 320x240 and at 150x100, and the mountain faces
 each sky tile stages equal `sky_tile_faces_ref`, also for a face list
 longer than one round of the kernel's cull; `select_gather` of
-csrc/gather.cu is exact.
+csrc/gather.cu is exact.  The perspective-UV instantiations of
+visibility, resolve (also sky-fused) and the composite equal their twins
+at both sizes, and `step_and_render` with perspective UVs, the editor's
+backface wires, the overlay and placed assets equals the CPU render.
 """
 
 import numpy as np
@@ -560,3 +563,122 @@ def test_select_gather_matches_twin(env, dtype):
     assert torch.equal(out, tg.select_gather_ref(table, idx))
     with pytest.raises(ValueError):
         tg.select_gather(table, idx.long())
+
+
+# ---- perspective-correct UVs, the wireframe passes, placed assets ----
+
+@pytest.mark.parametrize("hw", [(H, W), RAGGED],
+                         ids=lambda hw: f"{hw[1]}x{hw[0]}")
+@pytest.mark.parametrize("mode", ["zbuffer", "painters", "xray"])
+def test_perspective_kernels_match_twins_bit_for_bit(tenv, mode, hw):
+    """The perspective instantiations of visibility (keyed faces),
+    resolve and the composite against their twins."""
+    from bonnie32_tpu_torch.ops import _cuda
+    h, w = hw
+    settings = RasterSettings.game(xray_mode=mode == "xray",
+                                   use_zbuffer=mode != "painters",
+                                   affine_textures=False)
+    e, surf, prep = _transparent_inputs(tenv, settings, hw)
+    atlas = e.flat.atlas
+    cmode = rb.composite_mode(settings)
+    if mode == "xray":
+        prep = rb.face_tables(surf, atlas, w, h)
+        tr = rb.prep_xray(surf, e.flat.f_group)
+        color = torch.full((N, h, w), 0x10203040, dtype=torch.int32,
+                           device=prep.attrs.device)
+        depth = torch.zeros(color.shape, device=color.device)
+    else:
+        painters = mode == "painters"
+        tr = rb.prep_transparent(surf, e.flat_static.transparent_idx)
+        kern = _cuda.raster_visibility(prep, atlas, h, w, painters=painters,
+                                       perspective=True)
+        plain = rb.visibility_ref(prep, atlas, h, w, painters=painters,
+                                  perspective=True)
+        kc = _cuda.raster_resolve(prep, atlas, *kern[1:], 2, 0,
+                                  perspective=True)
+        pc = rb.resolve_ref(prep, atlas, *plain[1:], 2, 0, perspective=True)
+        affine = rb.resolve_ref(prep, atlas, *plain[1:], 2, 0)
+        torch.cuda.synchronize()
+        for k, p in zip(kern + (kc,), plain + (pc,)):
+            assert torch.equal(k, p)
+        assert int((affine != pc).sum()) > 0
+        depth, color = kern[0], kc
+    plain = rb.composite_ref(color, depth, tr, prep, atlas, 2, cmode,
+                             perspective=True)
+    kern = _cuda.raster_composite(color.clone(), depth, tr, prep, atlas, 2,
+                                  cmode, perspective=True)
+    torch.cuda.synchronize()
+    assert (kern != color).sum() > 0
+    assert torch.equal(kern, plain)
+
+
+def test_perspective_sky_resolve_matches_twin(env):
+    """The sky-fused resolve's perspective instantiation: face and
+    mountain pixels exact, other sky pixels within one step."""
+    from bonnie32_tpu_torch.ops import _cuda
+    _, dev, _ = env
+    level = ts.open_air_level(L, S, "night")
+    e = rollout.build_env(level, ts.textures(), ts.resolver, device=dev)
+    cams = _sky_cams((level, dev, e))
+    settings = RasterSettings.game(affine_textures=False)
+    surf = scene_flat.build_surfaces_flat(e.flat, cams, settings, W, H)
+    prep = rb.prep_instance(surf, e.flat.atlas, W, H)
+    planes = _cuda.raster_visibility(prep, e.flat.atlas, H, W,
+                                     perspective=True)
+    scal = sky_ops.prep_sky_scal(e.sky, cams, W, H)
+    bg = sky_ops.SkyBackground(e.sky, scal)
+    kc = _cuda.raster_resolve(prep, e.flat.atlas, *planes[1:], 2, bg,
+                              perspective=True)
+    pc = rb.resolve_ref(prep, e.flat.atlas, *planes[1:], 2, bg,
+                        perspective=True)
+    torch.cuda.synchronize()
+    face = planes[0] != 0
+    mtn = sky_ops.mountain_mask(e.sky, scal, H, W)
+    assert 0 < int(face.sum()) < face.numel()
+    assert torch.equal(kc[face], pc[face])
+    assert torch.equal(kc[mtn & ~face], pc[mtn & ~face])
+    assert int(_step(kc, pc).max()) <= 1
+
+
+# settings name -> (level function, textures, settings, asset library?)
+EDITOR_PATHS = {
+    "perspective": (ts.transparent_cave_level, ts.transparent_textures,
+                    RasterSettings.game(affine_textures=False), False),
+    "backface_wires": (ts.cave_size_level, ts.textures, RasterSettings(),
+                       False),
+    "overlay": (ts.transparent_cave_level, ts.transparent_textures,
+                RasterSettings(wireframe_overlay=True), False),
+    "assets": (ts.asset_level, ts.textures, RasterSettings.game(), True),
+}
+
+
+@pytest.mark.parametrize("name", sorted(EDITOR_PATHS))
+def test_editor_and_asset_paths_match_cpu(env, name):
+    """step_and_render on the card equals the CPU render of the same
+    cameras: perspective UVs, the editor's backface wires and overlay,
+    and the level with placed assets."""
+    from bonnie32_tpu_torch.models import asset as A
+    from bonnie32_tpu_torch.models import mesh as M
+    from bonnie32_tpu_torch.models import user_texture as U
+    _, dev, _ = env
+    build, textures, settings, assets = EDITOR_PATHS[name]
+    level = build(L)
+    kw = (dict(asset_library=ts.asset_library(A, M),
+               user_textures=ts.user_textures(U)) if assets else {})
+    e = rollout.build_env(level, textures(), ts.resolver, device=dev, **kw)
+    states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                    device=dev)
+    states, fbs = rollout.step_and_render(
+        states, e, _actions(np.random.default_rng(8), dev), settings,
+        height=H, width=W)
+    cams = stp.character_camera(states, e.params)
+    cpu_env = rollout.build_env(level, textures(), ts.resolver,
+                                device="cpu", **kw)
+    out = rollout.render_cameras(
+        cpu_env, CameraArrays(*(x.cpu() for x in cams)), settings, H, W)
+    assert torch.equal(out.color, fbs.color.cpu())
+    assert torch.equal(out.depth, fbs.depth.cpu())
+    if name != "perspective" and name != "assets":
+        from bonnie32_tpu_torch.ops import wireframe as wf
+        rgb = wf.FRONTFACE_COLOR if name == "overlay" else wf.BACKFACE_COLOR
+        assert bool((fbs.color == wf._pack_rgb(rgb)).any())

@@ -247,42 +247,38 @@ def test_keyable_faces_are_kept(surfaces_and_prep, scenes):
 
 
 @pytest.mark.parametrize("variant", [
-    "ortho", "transparent_not_last", "xray_perspective_uv", "wire_overlay",
-    "backface_wires", "perspective_uv", "transparent_perspective_uv",
-    "asset_library", "non_flat", "skybox"])
+    "ortho", "transparent_not_last", "transparent_perspective_not_last",
+    "backface_wires_two_groups", "non_flat", "skybox"])
 def test_unported_configurations_raise(scenes, variant):
-    """What the JAX package hands to its sequential renderer, and what is
-    not ported yet, raises."""
+    """What the JAX package hands to its sequential renderer, which is not
+    ported, raises: ortho projection, transparent faces outside the last
+    draw group (also with perspective UVs), backface wires over several
+    draw groups, the non-flat env and the exact sky mesh."""
     from bonnie32_tpu_torch.config import OrthoProjection
     tlevel, tflat, tstatic = scenes[1], scenes[4], scenes[5]
     game = RasterSettings.game()
-    perspective = dataclasses.replace(game, affine_textures=False)
     settings = {
         "ortho": dataclasses.replace(
             game, ortho_projection=OrthoProjection(1.0, 0.0, 0.0)),
-        "xray_perspective_uv": dataclasses.replace(perspective,
-                                                   xray_mode=True),
-        "wire_overlay": dataclasses.replace(game, wireframe_overlay=True),
-        "backface_wires": dataclasses.replace(game, backface_wireframe=True),
-        "perspective_uv": perspective,
-        "transparent_perspective_uv": perspective,
+        "transparent_perspective_not_last": dataclasses.replace(
+            game, affine_textures=False),
+        "backface_wires_two_groups": RasterSettings(),
     }.get(variant, game)
     static = tstatic
-    if variant == "transparent_not_last":
+    if variant.startswith("transparent"):
         # a transparent face in a group before the last: the per-room
         # interleave of the sequential renderer
         static = dataclasses.replace(tstatic, transparent_idx=(3,),
                                      transparent_last=False)
-    elif variant == "transparent_perspective_uv":
-        static = dataclasses.replace(tstatic, transparent_idx=(3,))
+    elif variant == "backface_wires_two_groups":
+        # the reference draws each group's wires after that group's
+        # solids, which a wire pass after all solids cannot reproduce
+        static = dataclasses.replace(tstatic, n_draw_groups=2)
     cams = interop.camera_arrays(_np(jbuild.make_camera(
         np.zeros(3, np.float32), jbuild.camera_basis(0.2, 0.3))))
     cams = type(cams)(*(x[None] for x in cams))
     with pytest.raises(NotImplementedError):
-        if variant == "asset_library":
-            tsf.compile_level_flat(tlevel, ts.textures(), ts.resolver,
-                                   asset_library=object(), device="cpu")
-        elif variant == "non_flat":
+        if variant == "non_flat":
             trollout.build_env(tlevel, ts.textures(), ts.resolver,
                                flat=False, device="cpu")
         elif variant == "skybox":
@@ -297,3 +293,79 @@ def test_unported_configurations_raise(scenes, variant):
             tsky.render_skybox(env.sky, cams, H, W, exact=True)
         else:
             tsf.render_level_flat(tflat, static, cams, settings, H, W)
+
+
+# The configurations that raised before the port drew them: variant ->
+# (level function, textures, level key of POSES, settings keywords), each
+# rendered on the CPU and held against the JAX package — its kernel path
+# (interpret mode; transparent faces through its sequential compositor
+# under perspective UVs), or for x-ray with perspective UVs, which its
+# kernel path refuses, its sequential renderer.
+PORTED = {
+    "perspective_uv": (ts.cave_size_level, ts.textures, "cave",
+                       dict(affine_textures=False)),
+    "transparent_perspective_uv": (ts.transparent_cave_level,
+                                   ts.transparent_textures, "cave",
+                                   dict(affine_textures=False)),
+    "xray_perspective_uv": (ts.transparent_cave_level,
+                            ts.transparent_textures, "cave",
+                            dict(affine_textures=False, xray_mode=True)),
+    "wire_overlay": (ts.two_room_level, ts.textures, "two_room",
+                     dict(wireframe_overlay=True)),
+    "backface_wires": (ts.cave_size_level, ts.textures, "cave",
+                       dict(backface_wireframe=True)),
+}
+
+
+@pytest.fixture(scope="module")
+def ported_refs():
+    """The JAX frames of every PORTED case, computed once."""
+    from bonnie32_tpu.models import scene as jscene
+    from bonnie32_tpu.ops import raster_ref
+    out = {}
+    fb0 = raster_ref.new_framebuffer(H, W, depth_mode="inv")
+    for variant, (build, textures, key, kw) in PORTED.items():
+        level = build(JL)
+        settings = dataclasses.replace(RasterSettings.game(), **kw)
+        cams = [jbuild.make_camera(np.asarray(p, np.float32),
+                                   jbuild.camera_basis(pi, ya))
+                for p, pi, ya in POSES[key]]
+        cams = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *cams)
+        jflat, jstatic = jsf.compile_level_flat(level, textures(),
+                                                ts.resolver)
+        if jsf.kernel_path_ok(jstatic, settings):
+            fbs = jax.tree_util.tree_map(
+                lambda x: jnp.broadcast_to(x, (len(POSES[key]),) + x.shape),
+                fb0)
+            color = jsf.render_level_flat(fbs, jflat, jstatic, cams,
+                                          settings, height=H, width=W,
+                                          interpret=True).color
+        else:
+            assert variant == "xray_perspective_uv"
+            seq = jscene.compile_level(level, textures(), ts.resolver)
+            color = jax.vmap(lambda c: jscene.render_level(
+                fb0, seq, c, settings).color)(cams)
+        out[variant] = (_np(cams), np.asarray(color))
+    return out
+
+
+@pytest.mark.parametrize("variant", sorted(PORTED))
+def test_ported_configurations_match_jax(ported_refs, variant):
+    """Perspective UVs (opaque, transparent, x-ray), the wireframe overlay
+    on two draw groups and backface wires on one: the port's CPU render
+    within the seam budget max(64*N, pixels/500) of the JAX package's
+    (XLA:CPU contracts FMAs; the overlay alone is exact)."""
+    build, textures, _, kw = PORTED[variant]
+    flat, static = tsf.compile_level_flat(build(TL), textures(), ts.resolver,
+                                          device="cpu")
+    settings = dataclasses.replace(RasterSettings.game(), **kw)
+    cams, jcolor = ported_refs[variant]
+    out = tsf.render_level_flat(flat, static, interop.camera_arrays(cams),
+                                settings, H, W)
+    diff = int((out.color.numpy() != jcolor).sum())
+    if variant == "wire_overlay":
+        assert static.n_draw_groups == 2 and diff == 0
+        assert bool(out.color.any())
+    else:
+        assert ((jcolor >> 24) & 255 == 255).mean() > 0.5
+        assert diff <= max(64 * jcolor.shape[0], jcolor.size // 500), diff

@@ -13,6 +13,10 @@ so keyed faces occur.  `transparent_cave_level` glazes 20 of those faces
 with the PS1 blend modes, `transparent_two_room_level` glazes 8 faces of
 the second room only, and `cube_scene` is tests/scenes.py's cube.
 
+`asset_level` places an asset of `asset_library` (two mesh parts, one
+double-sided with a user texture from `user_textures`, one with an
+embedded atlas, and a Light component) twice in the Cave-size level.
+
 `open_air_level` is the same room under a sky: no ceiling, the perimeter
 walls lowered to OPEN_WALL, so that a third or more of a typical frame is
 sky, and `level.skybox` set from `sky_config` (the skybox module is an
@@ -315,3 +319,75 @@ def cube_scene(tex_ids=(0, 0, 0, None, None, 0), size=1.0,
 
 DEFAULT_LIGHT_SPECS = [dict(kind="directional", direction=(-1.0, -1.0, -1.0),
                             intensity=0.7, color=(255, 255, 255))]
+
+
+ASSET_ID = 4242          # the placed asset of asset_level
+SIGN_TEXTURE_ID = 77     # the user texture of its second part
+
+
+def asset_library(A, M):
+    """An AssetLibrary of asset module `A` (built with mesh module `M`) that
+    holds, beside the built-ins, one asset ASSET_ID with two mesh parts
+    and a Light component: "crate", a 384-unit cube with an embedded
+    16x16 4-bit atlas, and "sign", a double-sided upright 512x448 quad
+    whose texture is the user texture SIGN_TEXTURE_ID (user_textures),
+    which has transparent texels (palette entry 0 is 0x0000)."""
+    ys, xs = np.meshgrid(np.arange(16), np.arange(16), indexing="ij")
+    crate_tex = M.IndexedAtlas(
+        width=16, height=16, depth=0,
+        indices=((xs // 4 + ys // 4) % 2 * 9 + (xs + ys) % 3 + 3).astype(
+            np.uint8).reshape(-1))
+    crate = M.MeshPart(name="crate", mesh=M.EditableMesh.cube(384.0),
+                       texture_ref=M.TextureRef(kind="Embedded",
+                                                embedded=crate_tex))
+    v = M.MeshVertex
+    quad = M.EditableMesh(
+        vertices=[v((-256.0, 200.0, 0.0), (0.0, 1.0), (0.0, 0.0, 1.0),
+                    (200, 160, 120)),
+                  v((256.0, 200.0, 0.0), (1.0, 1.0), (0.0, 0.0, 1.0),
+                    (120, 200, 160)),
+                  v((256.0, 648.0, 0.0), (1.0, 0.0), (0.0, 0.0, 1.0)),
+                  v((-256.0, 648.0, 0.0), (0.0, 0.0), (0.0, 0.0, 1.0))],
+        faces=[M.EditFace([0, 3, 2, 1])])
+    sign = M.MeshPart(name="sign", mesh=quad, double_sided=True,
+                      texture_ref=M.TextureRef(kind="Id",
+                                               id=SIGN_TEXTURE_ID))
+    light = A.AssetComponent("Light", {
+        "color": (255, 190, 120), "intensity": 1.4, "radius": 3500.0,
+        "offset": (0.0, 400.0, 0.0)})
+    lib = A.AssetLibrary()
+    lib.assets[ASSET_ID] = A.Asset(
+        id=ASSET_ID, name="crate_and_sign",
+        components=[A.AssetComponent("Mesh", {"parts_obj": [crate, sign]}),
+                    light])
+    return lib
+
+
+def user_textures(U):
+    """A TextureLibrary of user-texture module `U` holding
+    SIGN_TEXTURE_ID: 32x32, 4-bit, diagonal stripes over a 16-entry
+    palette whose entry 0 is transparent."""
+    lib = U.TextureLibrary()
+    ys, xs = np.meshgrid(np.arange(32), np.arange(32), indexing="ij")
+    palette = [0x0000] + [((i * 2) << 10) | ((31 - i) << 5) | (i + 8)
+                          for i in range(1, 16)]
+    lib.textures[SIGN_TEXTURE_ID] = U.UserTexture(
+        id=SIGN_TEXTURE_ID, name="sign", width=32, height=32, depth=0,
+        indices=((xs + ys) // 3 % 16).astype(np.uint8).reshape(-1),
+        palette=palette)
+    return lib
+
+
+def asset_level(L):
+    """The Cave-size level with the asset ASSET_ID placed twice: in
+    sector (2, 2) as it is, and in sector (5, 3) raised by 128 and turned
+    by 0.7 rad.  Five draw groups: the room, then each placement's two
+    parts."""
+    level = cave_size_level(L)
+    room = level.rooms[0]
+    room.objects.append(L.AssetInstance(sector_x=2, sector_z=2,
+                                        asset_id=ASSET_ID))
+    room.objects.append(L.AssetInstance(sector_x=5, sector_z=3,
+                                        asset_id=ASSET_ID, height=128.0,
+                                        facing=0.7))
+    return level
