@@ -21,13 +21,36 @@ def _t(a) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a))
 
 
-def make_mesh_arrays(pos, uv, normal, color, color_blend) -> MeshArrays:
-    """Pack vertex data (Vertex, types.rs:947)."""
-    return MeshArrays(pos=_t(np.asarray(pos, np.float32)),
-                      uv=_t(np.asarray(uv, np.float32)),
-                      normal=_t(np.asarray(normal, np.float32)),
-                      color=_t(np.asarray(color, np.int32)),
-                      color_blend=_t(np.asarray(color_blend, np.int32)))
+def _pad_rows(a, n: int, fill=0):
+    """`a` with rows appended up to `n`, each `fill`."""
+    if a.shape[0] == n:
+        return a
+    if a.shape[0] > n:
+        raise ValueError(f"{a.shape[0]} rows do not fit a pad of {n}")
+    out = np.full((n,) + a.shape[1:], fill, a.dtype)
+    out[:a.shape[0]] = a
+    return out
+
+
+def make_mesh_arrays(pos, uv=None, normal=None, color=None,
+                     color_blend=None, pad_to=None) -> MeshArrays:
+    """Pack vertex data (Vertex, types.rs:947); the defaults are
+    Vertex::new's (types.rs:962): uv (0, 0), normal 0, colour NEUTRAL
+    (128, 128, 128), opaque.  `pad_to` appends default-zero vertices."""
+    pos = np.asarray(pos, np.float32)
+    v = pos.shape[0]
+    uv = np.zeros((v, 2), np.float32) if uv is None else uv
+    normal = np.zeros((v, 3), np.float32) if normal is None else normal
+    color = np.full((v, 3), 128, np.int32) if color is None else color
+    color_blend = (np.full(v, int(BlendMode.OPAQUE), np.int32)
+                   if color_blend is None else color_blend)
+    n = pad_to or v
+    return MeshArrays(
+        pos=_t(_pad_rows(pos, n)),
+        uv=_t(_pad_rows(np.asarray(uv, np.float32), n)),
+        normal=_t(_pad_rows(np.asarray(normal, np.float32), n)),
+        color=_t(_pad_rows(np.asarray(color, np.int32), n)),
+        color_blend=_t(_pad_rows(np.asarray(color_blend, np.int32), n)))
 
 
 def compute_key_possible(uv, vidx, tex_id, black_transparent,
@@ -71,23 +94,40 @@ def compute_key_possible(uv, vidx, tex_id, black_transparent,
     return out
 
 
-def make_face_arrays(vidx, tex_id, black_transparent, blend_mode,
-                     editor_alpha, double_sided, key_possible) -> FaceArrays:
-    """Pack faces (Face, types.rs:983); every face is valid."""
+def make_face_arrays(vidx, tex_id=None, black_transparent=None,
+                     blend_mode=None, editor_alpha=None, double_sided=None,
+                     key_possible=None, pad_to=None) -> FaceArrays:
+    """Pack faces (Face, types.rs:983); the defaults are Face::new's
+    (types.rs:1013-1023): untextured, black-transparent, opaque, editor
+    alpha 255, single-sided; key_possible unknown (True).  `pad_to`
+    appends invalid faces."""
     vidx = np.asarray(vidx, np.int32).reshape(-1, 3)
+    t = vidx.shape[0]
+
+    def arr(a, dtype, default):
+        return np.full(t, default, dtype) if a is None else np.asarray(
+            a, dtype).reshape(t)
+
+    n = pad_to or t
     return FaceArrays(
-        vidx=_t(vidx), tex_id=_t(np.asarray(tex_id, np.int32)),
-        black_transparent=_t(np.asarray(black_transparent, bool)),
-        blend_mode=_t(np.asarray(blend_mode, np.int32)),
-        editor_alpha=_t(np.asarray(editor_alpha, np.int32)),
-        double_sided=_t(np.asarray(double_sided, bool)),
-        valid=torch.ones(vidx.shape[0], dtype=torch.bool),
-        key_possible=_t(np.asarray(key_possible, bool)))
+        vidx=_t(_pad_rows(vidx, n)),
+        tex_id=_t(_pad_rows(arr(tex_id, np.int32, -1), n, -1)),
+        black_transparent=_t(_pad_rows(arr(black_transparent, bool, True),
+                                       n, False)),
+        blend_mode=_t(_pad_rows(arr(blend_mode, np.int32,
+                                    int(BlendMode.OPAQUE)), n)),
+        editor_alpha=_t(_pad_rows(arr(editor_alpha, np.int32, 255), n, 255)),
+        double_sided=_t(_pad_rows(arr(double_sided, bool, False), n, False)),
+        valid=_t(_pad_rows(np.ones(t, bool), n, False)),
+        key_possible=_t(_pad_rows(arr(key_possible, bool, True), n, False)))
 
 
-def build_atlas(textures: Sequence[Tuple[np.ndarray, int]]) -> TextureAtlas:
+def build_atlas(textures: Sequence[Tuple[np.ndarray, int]],
+                pad_data_to=None, pad_count_to=None) -> TextureAtlas:
     """Flatten (pixels (h, w) Color15, blend_mode) textures into one word
-    array; an empty list becomes one 1x1 white texture."""
+    array; an empty list becomes one 1x1 white texture.  `pad_count_to`
+    appends 1x1 placeholder entries at offset 0, `pad_data_to` zero
+    words (the per-room atlases of models/scene.compile_level stack)."""
     if not textures:
         textures = [(np.full((1, 1), 0x7FFF, np.uint16),
                      int(BlendMode.OPAQUE))]
@@ -105,8 +145,19 @@ def build_atlas(textures: Sequence[Tuple[np.ndarray, int]]) -> TextureAtlas:
         has_transparent.append(bool((pixels == 0).any()))
         chunks.append(pixels.astype(np.int32).reshape(-1))
         off += h * w
+    for _ in range(len(offsets), pad_count_to or 0):
+        offsets.append(0)
+        widths.append(1)
+        heights.append(1)
+        blends.append(0)
+        has_black.append(False)
+        has_transparent.append(False)
+    data = np.concatenate(chunks).astype(np.int32)
+    if pad_data_to and pad_data_to > data.size:
+        data = np.concatenate([data, np.zeros(pad_data_to - data.size,
+                                              np.int32)])
     return TextureAtlas(
-        data=_t(np.concatenate(chunks).astype(np.int32)),
+        data=_t(data),
         offset=_t(np.asarray(offsets, np.int32)),
         width=_t(np.asarray(widths, np.int32)),
         height=_t(np.asarray(heights, np.int32)),

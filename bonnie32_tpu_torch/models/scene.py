@@ -1,20 +1,54 @@
-"""Host side of the scene compile (bonnie32_tpu/models/scene.py): the
-placed-asset helpers that models/scene_flat.compile_level_flat needs.
+"""Scene compile and the per-room sequential renderer
+(bonnie32_tpu/models/scene.py): `render_scene` (scene.rs:180-261).
 
-`collect_scene_lights` gathers the point lights of placed Light
-components, `transform_part_vertices` places an asset part's vertices in
-the world, `resolve_part_texture15` resolves a part's texture to a
-Color15 image.  All three run on the host in numpy f32, in the
-reference's operation order, as in the JAX package.  The per-room
-sequential renderer of that module (`compile_level`, `render_level`) is
-not ported yet (ROADMAP.md queue 1).
+`compile_level` emits every room into stacked padded buffers (R rooms),
+each with its own trimmed texture table, fog and ambient, and every
+visible part of every placed asset into a draw of its own (D draws);
+`render_level` renders the rooms in order, each through
+render.render_mesh_15 with its own ambient and fog, then the asset draws
+— the reference's per-room settings clone (scene.rs:201-205).  The host
+helpers `collect_scene_lights`, `transform_part_vertices` and
+`resolve_part_texture15` serve models/scene_flat.compile_level_flat too;
+they run on the host in numpy f32, in the reference's operation order.
+The 8-bit pipeline (`use_rgb555=False`) is not ported yet.
 """
 
-from typing import List
+from typing import List, NamedTuple, Optional
 
 import numpy as np
+import torch
 
+from ..config import RasterSettings
+from ..render import render_mesh_15
+from ..types import (CameraArrays, FaceArrays, Fog, FrameBuffers, Lights,
+                     MeshArrays, TextureAtlas, resolve_device, to_device)
+from . import build
 from . import mesh as mesh_mod
+
+F32 = np.float32
+_8BIT = ("the 8-bit pipeline (use_rgb555=False: raster8, build_atlas8, "
+         "_render_level8) is not ported yet (ROADMAP.md queue 1)")
+NO_FOG_ROW = (False, 0.0, 0.0, 3.4e38, (0, 0, 0))
+
+
+class CompiledScene(NamedTuple):
+    """Stacked per-room buffers (R rooms) and per-asset-part draws (D
+    draws; a level without any holds one dummy draw without faces),
+    render_scene's two phases (scene.rs:196, 226)."""
+
+    mesh: MeshArrays        # fields (R, V, ...)
+    faces: FaceArrays       # fields (R, T, ...)
+    atlas: TextureAtlas     # fields (R, ...): per-room trimmed atlases
+    fog: Fog                # fields (R, ...)
+    ambient: torch.Tensor   # (R,) f32
+    lights: Lights          # the scene's lights; ambient set per room
+    a_mesh: MeshArrays      # fields (D, V', ...)
+    a_faces: FaceArrays     # fields (D, T', ...)
+    a_atlas: TextureAtlas   # fields (D, ...): one texture per draw
+    a_fog: Fog              # fields (D, ...): the containing room's fog
+    a_ambient: torch.Tensor  # (D,) f32: the containing room's ambient
+    a_room: object = None   # (D,) i32: the containing room of each draw
+    a_count: int = 0        # draws with faces (the dummy draw is not one)
 
 
 def collect_scene_lights(level, asset_library=None) -> List[dict]:
@@ -97,3 +131,232 @@ def resolve_part_texture15(part, user_textures) -> np.ndarray:
         return ref.embedded.to_texture15(mesh_mod.checkerboard_clut())
     atlas = mesh_mod.IndexedAtlas.new_checkerboard(128, 128, 0)
     return atlas.to_texture15(mesh_mod.checkerboard_clut())
+
+
+def _room_fog_params(room):
+    """build_room_fog (scene.rs:264-276)."""
+    f = room.fog
+    if not f.enabled:
+        return NO_FOG_ROW
+    color = tuple(int(F32(F32(c) * F32(255.0))) for c in f.color)
+    cull = float(F32(F32(F32(f.start) + F32(f.falloff)) + F32(f.cull_offset)))
+    return True, float(f.start), float(f.falloff), cull, color
+
+
+def _stack(trees):
+    """Stack NamedTuples of tensors field by field."""
+    return type(trees[0])(*(torch.stack(xs) for xs in zip(*trees)))
+
+
+def _fog_rows(rows) -> Fog:
+    return Fog(enabled=torch.tensor([f[0] for f in rows], dtype=torch.bool),
+               start=torch.from_numpy(np.array([f[1] for f in rows], F32)),
+               falloff=torch.from_numpy(np.array([f[2] for f in rows], F32)),
+               cull_distance=torch.from_numpy(np.array([f[3] for f in rows],
+                                                       F32)),
+               color=torch.from_numpy(np.array([f[4] for f in rows],
+                                               np.int32)))
+
+
+def _mesh_of(verts, pad_to):
+    return build.make_mesh_arrays(
+        np.array([v["pos"] for v in verts], F32),
+        np.array([v["uv"] for v in verts], F32),
+        np.array([v["normal"] for v in verts], F32),
+        np.array([v["color"] for v in verts], np.int32),
+        np.array([v.get("color_blend", 0) for v in verts], np.int32),
+        pad_to=pad_to)
+
+
+def _no_faces(pad_to):
+    return build.make_face_arrays(np.zeros((1, 3), np.int32),
+                                  pad_to=pad_to)._replace(
+        valid=torch.zeros(pad_to, dtype=torch.bool))
+
+
+_ORIGIN = dict(pos=(0, 0, 0), uv=(0, 0), normal=(0, 0, 0),
+               color=(128, 128, 128), color_blend=0)
+
+
+def compile_level(level, textures, resolve,
+                  light_specs: Optional[List[dict]] = None,
+                  asset_library=None, user_textures=None,
+                  light_pad: int = 8, device=None) -> CompiledScene:
+    """Every room (and placed asset part) into stacked padded buffers on
+    `device` (default: the card), as the JAX package compiles them.
+    `textures`: (pixels15, blend) tuples or objects with `.pixels15`;
+    `resolve`: TextureRef -> (id, width) or None.  Each room's texture
+    ids are remapped to the textures it samples, in ascending global id
+    order."""
+    device = resolve_device(device)
+    per_room = [room.to_render_data(resolve) for room in level.rooms]
+    pad_verts = max(max((len(v) for v, _ in per_room), default=1), 1)
+    pad_faces = max(max((len(f) for _, f in per_room), default=1), 1)
+    tex_list = [t if isinstance(t, tuple) else (t.pixels15, 0)
+                for t in textures]
+    room_tex_lists = []
+    for _, faces in per_room:
+        used = sorted({f["tex_id"] for f in faces
+                       if f.get("tex_id") is not None and f["tex_id"] >= 0})
+        if not used:
+            used = [0] if tex_list else []
+        remap = {g: i for i, g in enumerate(used)}
+        for f in faces:
+            if f.get("tex_id") is not None and f["tex_id"] >= 0:
+                f["tex_id"] = remap[f["tex_id"]]
+        room_tex_lists.append([tex_list[g] for g in used])
+
+    meshes, face_arrays = [], []
+    for room_i, (verts, faces) in enumerate(per_room):
+        verts = verts or [_ORIGIN]
+        meshes.append(_mesh_of(verts, pad_verts))
+        if not faces:
+            face_arrays.append(_no_faces(pad_faces))
+            continue
+        uv = np.array([v["uv"] for v in verts], F32)
+        vidx = np.array([(f["v0"], f["v1"], f["v2"]) for f in faces],
+                        np.int32)
+        tex_id = np.array([-1 if f.get("tex_id") is None else f["tex_id"]
+                           for f in faces], np.int32)
+        bt = np.array([f.get("black_transparent", True) for f in faces],
+                      bool)
+        face_arrays.append(build.make_face_arrays(
+            vidx, tex_id, bt,
+            np.array([f.get("blend_mode", 0) for f in faces], np.int32),
+            np.array([f.get("editor_alpha", 255) for f in faces], np.int32),
+            key_possible=build.compute_key_possible(
+                uv, vidx, tex_id, bt, room_tex_lists[room_i]),
+            pad_to=pad_faces))
+
+    room_tex_lists = room_tex_lists or [[]]
+    a_max = max(max(sum(p.shape[0] * p.shape[1] for p, _ in lst)
+                    for lst in room_tex_lists), 1)
+    a_max = -(-a_max // 128) * 128
+    nt_max = max(max(len(lst) for lst in room_tex_lists), 1)
+    atlas = _stack([build.build_atlas(lst, pad_data_to=a_max,
+                                      pad_count_to=nt_max)
+                    for lst in room_tex_lists])
+    fog = _fog_rows([_room_fog_params(r) for r in level.rooms]
+                    or [NO_FOG_ROW])
+    ambient = torch.from_numpy(np.array([r.ambient for r in level.rooms]
+                                        or [0.5], F32))
+    lights = build.lights_from_list(light_specs or [], pad=light_pad)
+
+    # the placed asset draws (scene.rs:226-259)
+    draws, draw_rooms = [], []
+    if asset_library is not None:
+        for room_idx, room in enumerate(level.rooms):
+            fog_row = _room_fog_params(room)
+            for obj in room.objects:
+                if not obj.enabled:
+                    continue
+                asset = asset_library.get_by_id(obj.asset_id)
+                parts = asset.mesh() if asset is not None else None
+                if not parts:
+                    continue
+                wp = obj.world_position(room)
+                for part in parts:
+                    if not part.visible:
+                        continue
+                    verts, pfaces = part.mesh.to_render_data_textured()
+                    if not verts:
+                        continue
+                    draws.append((transform_part_vertices(verts, obj.facing,
+                                                          wp),
+                                  pfaces,
+                                  resolve_part_texture15(part,
+                                                         user_textures),
+                                  fog_row, room.ambient, part.double_sided))
+                    draw_rooms.append(room_idx)
+    a_count = len(draws)
+    if not draws:
+        draws = [([_ORIGIN], [], np.full((1, 1), 0x7FFF, np.uint16),
+                  NO_FOG_ROW, 0.5, False)]
+        draw_rooms = [0]
+
+    av_max = max(max(len(d[0]) for d in draws), 1)
+    at_max = max(max(len(d[1]) for d in draws), 1)
+    aa_max = max(d[2].shape[0] * d[2].shape[1] for d in draws)
+    aa_max = -(-aa_max // 128) * 128
+    a_meshes, a_face_arrays, a_atlases = [], [], []
+    for verts, pfaces, tex15, _, _, ds in draws:
+        a_meshes.append(_mesh_of(verts, av_max))
+        if pfaces:
+            uv = np.array([v["uv"] for v in verts], F32)
+            vidx = np.array([(f["v0"], f["v1"], f["v2"]) for f in pfaces],
+                            np.int32)
+            tid = np.array([0 if f.get("tex_id") is not None else -1
+                            for f in pfaces], np.int32)
+            bt = np.array([f.get("black_transparent", True) for f in pfaces],
+                          bool)
+            a_face_arrays.append(build.make_face_arrays(
+                vidx, tid, bt,
+                np.array([f.get("blend_mode", 0) for f in pfaces], np.int32),
+                double_sided=np.full(len(pfaces), ds, bool),
+                key_possible=build.compute_key_possible(uv, vidx, tid, bt,
+                                                        [(tex15, 0)]),
+                pad_to=at_max))
+        else:
+            a_face_arrays.append(_no_faces(at_max))
+        a_atlases.append(build.build_atlas([(tex15, 0)], pad_data_to=aa_max,
+                                           pad_count_to=1))
+    scene = CompiledScene(
+        mesh=_stack(meshes), faces=_stack(face_arrays), atlas=atlas,
+        fog=fog, ambient=ambient, lights=lights,
+        a_mesh=_stack(a_meshes), a_faces=_stack(a_face_arrays),
+        a_atlas=_stack(a_atlases), a_fog=_fog_rows([d[3] for d in draws]),
+        a_ambient=torch.from_numpy(np.array([d[4] for d in draws], F32)),
+        a_room=torch.from_numpy(np.array(draw_rooms, np.int32)),
+        a_count=a_count)
+    return to_device(scene, device)
+
+
+def _index(tree, i):
+    return type(tree)(*(x[i] for x in tree))
+
+
+def render_level(fb: FrameBuffers, scene: CompiledScene,
+                 cams: CameraArrays, settings: RasterSettings,
+                 depth_mode: str = "fast", skip_rooms: tuple = (),
+                 use_fog: bool = True,
+                 render_assets: bool = True) -> FrameBuffers:
+    """render_scene (scene.rs:180-261) into (I, H, W) framebuffers, one
+    camera of `cams` each: the rooms in order, each with its own ambient
+    and fog, then the placed asset parts, each through
+    render.render_mesh_15 in `depth_mode`.
+
+    `skip_rooms`, `use_fog` and `render_assets` are SceneRenderOptions
+    (scene.rs:172-178), the world editor's: the rooms listed (and the
+    objects placed in them) are skipped, fog can be forced off, and the
+    asset draws left out.  Which rooms draw is decided on the host before
+    any launch.  `settings.use_rgb555=False` (the 8-bit pipeline) raises
+    NotImplementedError."""
+    if not settings.use_rgb555:
+        raise NotImplementedError(_8BIT)
+    n_rooms = scene.ambient.shape[0]
+    room_ok = [True] * n_rooms
+    for r in skip_rooms:
+        if 0 <= r < n_rooms:
+            room_ok[r] = False
+
+    def draw(fb, mesh, faces, atlas, fog, ambient):
+        if not use_fog:
+            fog = fog._replace(enabled=torch.zeros_like(fog.enabled))
+        return render_mesh_15(fb, mesh, faces, atlas, cams,
+                              scene.lights._replace(ambient=ambient), fog,
+                              settings, depth_mode=depth_mode)
+
+    for i in range(n_rooms):
+        if room_ok[i]:
+            fb = draw(fb, _index(scene.mesh, i), _index(scene.faces, i),
+                      _index(scene.atlas, i), _index(scene.fog, i),
+                      scene.ambient[i])
+    if not render_assets or not scene.a_count:
+        return fb
+    a_room = scene.a_room.tolist() if skip_rooms else [0] * scene.a_count
+    for i in range(scene.a_count):
+        if room_ok[min(max(a_room[i], 0), n_rooms - 1)]:
+            fb = draw(fb, _index(scene.a_mesh, i), _index(scene.a_faces, i),
+                      _index(scene.a_atlas, i), _index(scene.a_fog, i),
+                      scene.a_ambient[i])
+    return fb

@@ -16,9 +16,11 @@ of every face onto the background; affine or perspective-correct UVs;
 then the editor's backface wireframes, or, in `wireframe_overlay` mode,
 the front edges alone on the cleared frame (ops/wireframe.py).  Placed
 asset parts compile into draw groups of their own after the rooms.  The
-configurations the JAX package hands to its sequential renderer raise
-NotImplementedError (`check_slice`), with one exception: x-ray with
-perspective-correct UVs, which the port's composite kernel draws.
+configurations the kernels cannot draw (`kernel_route_ok`) raise
+NotImplementedError here (`check_slice`); rollout.step_and_render sends
+them to the sequential renderer (models/scene.render_level), as the JAX
+package does.  X-ray with perspective-correct UVs, sequential in the JAX
+package, runs in the port's composite kernel.
 """
 
 import dataclasses
@@ -27,22 +29,22 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import BlendMode, NEAR_PLANE, RasterSettings, \
+from ..config import BlendMode, RasterSettings, \
     ShadingMode
 from ..ops import raster_batch as rb
 from ..ops import skybox as sky_ops
 from ..ops import wireframe as wf
 from ..ops.lighting import normalize_rows, shade_points
-from ..ops.surface import _apply_fog_to_color, _fog_factor
+from ..ops.surface import corner_surfaces
 from ..ops.vertex import transform_vertices
 from ..types import (CameraArrays, FaceArrays, FrameBuffers, Lights,
                      MeshArrays, Surfaces, TextureAtlas, resolve_device,
                      to_device)
 from . import build
-from .scene import resolve_part_texture15, transform_part_vertices
+from .scene import (NO_FOG_ROW, _room_fog_params, resolve_part_texture15,
+                    transform_part_vertices)
 
 F32 = np.float32
-_LATER = "is not ported yet (ROADMAP.md queue 1)"
 
 
 class FogFaces(NamedTuple):
@@ -89,16 +91,6 @@ class FlatSceneStatic:
     # opaque-then-transparent matches the reference's per-room interleave
     transparent_last: bool
     n_draw_groups: int = 1             # rooms (+ placed asset parts)
-
-
-def _room_fog_params(room):
-    """build_room_fog (scene.rs:264-276)."""
-    f = room.fog
-    if not f.enabled:
-        return False, 0.0, 0.0, 3.4e38, (0, 0, 0)
-    color = tuple(int(F32(F32(c) * F32(255.0))) for c in f.color)
-    cull = float(F32(F32(F32(f.start) + F32(f.falloff)) + F32(f.cull_offset)))
-    return True, float(f.start), float(f.falloff), cull, color
 
 
 def compile_level_flat(level, textures, resolve,
@@ -174,7 +166,7 @@ def compile_scene_flat(verts, faces, textures, light_specs=None,
     device = resolve_device(device)
     tex_list = [t if isinstance(t, tuple) else (t.pixels15, 0)
                 for t in textures]
-    fog_row = (False, 0.0, 0.0, 3.4e38, (0, 0, 0))
+    fog_row = NO_FOG_ROW
     groups = [(list(verts), [dict(f) for f in faces], fog_row, ambient,
                None)]
     scene, static = _compile_groups(groups, tex_list, light_specs, light_pad)
@@ -288,91 +280,26 @@ def _compile_groups(groups, tex_list, light_specs, light_pad):
     return scene, static
 
 
-def _swap_corners(arr, swap):
-    """Corner order (0, 2, 1) where `swap` (I, T) holds; arr (I, T, 3, ...)."""
-    swapped = arr[:, :, [0, 2, 1]]
-    mask = swap.reshape(swap.shape + (1,) * (arr.dim() - 2))
-    return torch.where(mask, swapped, arr)
-
-
 def build_surfaces_flat(scene: FlatScene, cams: CameraArrays,
                         settings: RasterSettings,
                         width: int, height: int) -> Surfaces:
     """ops/surface.build_surfaces with per-face fog/ambient, batched over
-    the cameras' leading instance dimension (render.rs:2313-2513)."""
-    faces, fog = scene.faces, scene.fog
+    the cameras' leading instance dimension (render.rs:2313-2513): the
+    shared ops/surface.corner_surfaces with the compiled shade tables."""
     cam = CameraArrays(position=cams.position[:, None, None, :],
                        basis=cams.basis[:, None, None, :, :])
     tv = transform_vertices(scene.cpos, cam, settings, width, height)
-    c_sx, c_sy, c_sz = tv.sx, tv.sy, tv.sz          # (I, T, 3)
-    cam_z = tv.cam[..., 2]
-    n = c_sx.shape[0]
 
-    near_ok = (cam_z > NEAR_PLANE).all(dim=-1)
-    v1x, v2x, v3x = c_sx[..., 0], c_sx[..., 1], c_sx[..., 2]
-    v1y, v2y, v3y = c_sy[..., 0], c_sy[..., 1], c_sy[..., 2]
-    signed_area = (v2x - v1x) * (v3y - v1y) - (v3x - v1x) * (v2y - v1y)
-    is_backface = signed_area <= 0.0
+    def shade_of(swap):
+        if settings.shading == ShadingMode.GOURAUD:
+            neg = scene.cshade_neg[:, [0, 2, 1]]
+            return torch.where(swap[..., None, None], neg, scene.cshade)
+        return torch.where(swap[..., None], scene.fshade_neg, scene.fshade)
 
-    factors = torch.where(fog.enabled[:, None],
-                          _fog_factor(cam_z, fog.start[:, None],
-                                      fog.falloff[:, None]),
-                          torch.zeros_like(cam_z))
-    vc_rgb, vc_blend = _apply_fog_to_color(
-        scene.cvcol, scene.cvblend, fog.color[:, None, :], factors)
-    fog_cull = fog.enabled & (cam_z > fog.cull_distance[:, None]).all(-1)
-
-    textured = faces.tex_id >= 0
-    render_back = not settings.backface_cull or settings.xray_mode
-    if render_back:
-        render_back_face = torch.ones_like(is_backface)
-    else:
-        render_back_face = faces.double_sided.expand_as(is_backface)
-    swap = is_backface & render_back_face
-
-    sx = _swap_corners(c_sx[..., None], swap)[..., 0]
-    sy = _swap_corners(c_sy[..., None], swap)[..., 0]
-    sz = _swap_corners(c_sz[..., None], swap)[..., 0]
-    uv = _swap_corners(scene.cuv.expand(n, -1, -1, -1), swap)
-    vc = _swap_corners(vc_rgb.expand(n, -1, -1, -1), swap)
-    vcb = _swap_corners(vc_blend.expand(n, -1, -1)[..., None], swap)[..., 0]
-
-    if settings.shading == ShadingMode.GOURAUD:
-        neg = scene.cshade_neg[:, [0, 2, 1]]
-        shade = torch.where(swap[..., None, None], neg, scene.cshade)
-    elif settings.shading == ShadingMode.FLAT:
-        flat = torch.where(swap[..., None], scene.fshade_neg, scene.fshade)
-        shade = flat[:, :, None, :].expand(-1, -1, 3, -1)
-    else:
-        shade = torch.ones((n,) + tuple(scene.cpos.shape), device=sx.device)
-
-    vc_eq_12 = (vc[:, :, 0] == vc[:, :, 1]).all(-1) \
-        & (vcb[:, :, 0] == vcb[:, :, 1])
-    vc_eq_23 = (vc[:, :, 1] == vc[:, :, 2]).all(-1) \
-        & (vcb[:, :, 1] == vcb[:, :, 2])
-    needs_dither = (textured | ~vc_eq_12 | ~vc_eq_23
-                    | (settings.shading == ShadingMode.GOURAUD)) \
-        & settings.dithering
-
-    front_ok = ~is_backface | render_back_face
-    valid = faces.valid & near_ok & ~fog_cull & front_ok
-
-    centroid_z = ((sz[..., 0] + sz[..., 1]) + sz[..., 2]) / 3.0
-    inv_z = 1.0 / sz
-    r1x, r2x, r3x = sx[..., 0], sx[..., 1], sx[..., 2]
-    r1y, r2y, r3y = sy[..., 0], sy[..., 1], sy[..., 2]
-    area = (r2y - r3y) * (r1x - r3x) + (r3x - r2x) * (r1y - r3y)
-    degenerate = area.abs() < 0.00001
-    inv_area = 1.0 / torch.where(degenerate, torch.ones_like(area), area)
-
-    return Surfaces(
-        sx=sx, sy=sy, z=sz, inv_z=inv_z, area=area, inv_area=inv_area,
-        uv=uv, vc=vc, shade=shade, tex_id=faces.tex_id,
-        blend_mode=scene.f_blend,
-        black_transparent=faces.black_transparent,
-        editor_alpha=faces.editor_alpha, needs_dither=needs_dither,
-        has_transparency=scene.f_hastransp, centroid_z=centroid_z,
-        valid=valid, key_possible=faces.key_possible)
+    return corner_surfaces(
+        tv.sx, tv.sy, tv.sz, tv.cam[..., 2], scene.faces, scene.cuv,
+        scene.cvcol, scene.cvblend, scene.fog, scene.f_blend,
+        scene.f_hastransp, shade_of, settings)
 
 
 def kernel_path_ok(static: FlatSceneStatic,
@@ -384,7 +311,7 @@ def kernel_path_ok(static: FlatSceneStatic,
     ortho projection; backface wireframes in one draw group only; x-ray
     with affine UVs; otherwise every transparent face in the final draw
     group.  This mirrors the JAX function only: the port's routing does
-    not read it, and `check_slice` differs from it in one case, x-ray
+    not read it, and `kernel_route_ok` differs from it in one case, x-ray
     with perspective-correct UVs, which the port's composite draws."""
     if settings.ortho_projection is not None:
         return False
@@ -396,25 +323,47 @@ def kernel_path_ok(static: FlatSceneStatic,
     return static.transparent_last
 
 
-def check_slice(static: FlatSceneStatic, settings: RasterSettings):
-    """Raise NotImplementedError for every configuration that the JAX
-    package hands to its sequential renderer, which is not ported: ortho
-    projection; backface wireframes over more than one draw group (the
-    reference interleaves each group's solids and wires, which a pass
-    after all solids cannot reproduce); transparent faces outside the last
-    draw group, outside x-ray mode.  X-ray with perspective-correct UVs,
-    sequential in the JAX package, runs here in the composite kernel."""
+def kernel_route_refusal(static: FlatSceneStatic,
+                         settings: RasterSettings) -> Optional[str]:
+    """Why the port's kernels cannot draw this level under these settings,
+    or None where they can.  Decided by the settings and the level's
+    static facts alone, before any launch.  The kernels cannot draw ortho
+    projection (no linear-z merge); backface wireframes over more than one
+    draw group (the reference draws each group's wires after that group's
+    solids, which a wire pass after all solids cannot reproduce);
+    transparent faces outside the last draw group, outside x-ray mode (the
+    reference composites them between the groups).  X-ray with
+    perspective-correct UVs, sequential in the JAX package, runs in the
+    composite kernel."""
     if settings.ortho_projection is not None:
-        raise NotImplementedError(f"ortho projection {_LATER}")
+        return "ortho projection"
     if (settings.backface_cull and settings.backface_wireframe
             and static.n_draw_groups > 1):
+        return f"backface wireframes over {static.n_draw_groups} draw groups"
+    if not (settings.xray_mode or static.transparent_last):
+        return "transparent faces outside the last draw group"
+    return None
+
+
+def kernel_route_ok(static: FlatSceneStatic,
+                    settings: RasterSettings) -> bool:
+    """Whether the port's kernels draw this level under these settings
+    (`kernel_route_refusal` is None); where they do not,
+    rollout.step_and_render takes the sequential renderer
+    (models/scene.render_level)."""
+    return kernel_route_refusal(static, settings) is None
+
+
+def check_slice(static: FlatSceneStatic, settings: RasterSettings):
+    """Raise NotImplementedError where the kernels cannot draw the level
+    under the settings (`kernel_route_refusal`): those configurations
+    take the sequential renderer, models/scene.render_level."""
+    why = kernel_route_refusal(static, settings)
+    if why is not None:
         raise NotImplementedError(
-            "the sequential renderer (backface wireframes over "
-            f"{static.n_draw_groups} draw groups) {_LATER}")
-    if not settings.xray_mode and not static.transparent_last:
-        raise NotImplementedError(
-            "the sequential renderer (transparent faces outside the last "
-            f"draw group) {_LATER}")
+            f"the kernel route cannot draw {why}: render it with the "
+            "sequential renderer, models.scene.render_level "
+            "(rollout.step_and_render routes there)")
 
 
 def render_level_flat(scene: FlatScene, static: FlatSceneStatic,

@@ -583,22 +583,8 @@ def prep_xray(surfaces: Surfaces, group_id=None,
     return _composite_tables(surfaces, torch.arange(t, device=dev), order)
 
 
-def _blend5(blend, f8, b8):
-    """blend_rgb555 (render.rs:1093-1145) on 8-bit operands; the output is
-    the plain v5 << 3 expansion (render.rs:1143)."""
-    f5 = f8 >> 3
-    b5 = b8 >> 3
-    v5 = torch.where(
-        blend == int(BlendMode.AVERAGE), torch.clamp((b5 + f5) >> 1, max=31),
-        torch.where(
-            blend == int(BlendMode.ADD), torch.clamp(b5 + f5, max=31),
-            torch.where(
-                blend == int(BlendMode.SUBTRACT), torch.clamp(b5 - f5, min=0),
-                torch.where(
-                    blend == int(BlendMode.ADD_QUARTER),
-                    torch.clamp(b5 + (f5 >> 2), max=31),
-                    torch.where(blend == int(BlendMode.ERASE), b5, f5)))))
-    return v5 << 3
+# blend_rgb555 of one channel (ops/color.py)
+_blend5 = col.blend5
 
 
 def composite_mode(settings: RasterSettings) -> int:

@@ -1,7 +1,11 @@
 """Wireframe passes of the editor (bonnie32_tpu/ops/wireframe.py): the
 edges of the back faces, depth-tested, over the solid passes, and the
 edges of the front faces over a cleared frame (`wireframe_overlay`),
-batched over instances in plain torch tensor code.
+batched over instances in plain torch tensor code: over a FlatScene
+(`render_wireframes_flat`, the kernel route, each edge deduplicated within
+its draw group) or over one mesh (`render_wireframes`, the sequential
+renderer's pass after each render_mesh_15, on an inverse-z or a
+harmonic-z depth plane).
 
 The reference walks each edge with a data-dependent Bresenham loop
 (render.rs:684-860) after collecting and deduplicating the edges in its
@@ -27,7 +31,7 @@ padding slot past the frame (a negative index would wrap).
 import torch
 
 from ..config import NEAR_PLANE, RasterSettings
-from ..types import CameraArrays
+from ..types import CameraArrays, FrameBuffers
 from .fixed import f32_to_i32
 from .raster_batch import _lexsort
 from .vertex import transform_vertices
@@ -106,12 +110,15 @@ def _pack_rgb(rgb) -> int:
 
 
 def _scatter_lines(buf, depth, ex, ey, ez, valid_edge, word: int,
-                   max_steps: int, depth_tested: bool, inst0: int):
+                   max_steps: int, depth_tested: bool, inst0: int,
+                   depth_mode: str = "inv"):
     """Draw the edges (I, E, 2) of instances inst0.. into `buf`, the flat
     colour planes of every instance plus one padding slot.  With
-    `depth_tested` a pixel draws only where the line's 1/z is strictly
-    above the depth plane's (draw_line_3d: z < buf, render.rs:795, 800,
-    on an inverse-z plane); depth is never written (render.rs:793-797)."""
+    `depth_tested` a pixel draws only where the line is strictly in front
+    of the depth plane (draw_line_3d: z < buf, render.rs:795, 800): on an
+    inverse-z plane ("inv") where its 1/z is above the plane's, on a
+    harmonic one where its z is below.  Depth is never written
+    (render.rs:793-797)."""
     n, height, width = depth.shape
     xs, ys, t, step_ok = line_pixels(ex[..., 0], ey[..., 0], ex[..., 1],
                                      ey[..., 1], width, height, max_steps)
@@ -122,10 +129,13 @@ def _scatter_lines(buf, depth, ex, ey, ez, valid_edge, word: int,
     pix = ((inst[:, None, None] * height + ys.long()) * width + xs.long())
     if depth_tested:
         plane = depth.reshape(-1)[torch.where(ok, pix, torch.zeros_like(pix))]
-        # a line z <= 0 cannot beat a positive 1/z; the cleared 0 is far
-        izl = torch.where(z > 0.0, torch.ones_like(z) / z,
-                          torch.full_like(z, float("-inf")))
-        ok &= izl > plane
+        if depth_mode == "harmonic":
+            ok &= z < plane
+        else:
+            # a line z <= 0 cannot beat a positive 1/z; the cleared 0 is far
+            izl = torch.where(z > 0.0, torch.ones_like(z) / z,
+                              torch.full_like(z, float("-inf")))
+            ok &= izl > plane
     buf.index_fill_(0, torch.where(ok, pix, torch.full_like(pix, n * height
                                                             * width)
                                    ).reshape(-1), word)
@@ -163,6 +173,15 @@ def _dedup_mask_grouped(ex, ey, valid, group):
     return torch.zeros_like(keep_sorted).scatter(1, order, keep_sorted)
 
 
+def _dedup_mask(ex, ey, valid):
+    """First-occurrence mask (I, E) over one mesh's edges
+    (render.rs:2586): among the edges with the same normalized endpoints
+    the first valid one survives.  The JAX package compares every pair;
+    the grouped sort gives the same mask with one group."""
+    return _dedup_mask_grouped(ex, ey, valid, torch.zeros(
+        ex.shape[1], dtype=torch.int32, device=ex.device))
+
+
 def _normalize_edge_order(ex, ey, ez):
     """The reference draws each edge from its lexically smaller endpoint
     (render.rs:2587-2591)."""
@@ -172,33 +191,30 @@ def _normalize_edge_order(ex, ey, ez):
             torch.where(flip, ez.flip(-1), ez))
 
 
-def wireframe_edges_flat(scene, cams: CameraArrays,
-                         settings: RasterSettings, width: int, height: int):
-    """The edges of every face of a FlatScene for each camera of `cams`
-    ((I,) CameraArrays): (ex (I, E, 2) i32, ey, ez (I, E, 2) f32, back
-    (I, E), front (I, E), group (E,)), E = 3 T in face order (edges v1v2,
-    v2v3, v3v1), from the corners in their original winding (the
-    wireframe phase reads vertices before the backface swap,
-    render.rs:2373-2513).  Back edges are those of valid back faces that
+def _face_edges(c_sx, c_sy, c_sz, cam_z, valid, double_sided, fog_enabled,
+                fog_cull_distance, settings: RasterSettings):
+    """The edges of faces with screen corners (I, T, 3) in their original
+    winding: (ex, ey (I, 3 T, 2) i32, ez (I, 3 T, 2) f32, back (I, 3 T),
+    front (I, 3 T)), edges v1v2, v2v3, v3v1 of each face in face order
+    (render.rs:2373-2513).  Back edges are those of valid back faces that
     are not double-sided (the reference draws double-sided parts without
-    backface culling, which skips their backface phase, scene.rs:134-138)
-    and none in x-ray mode; front edges those of valid front faces; fog
-    culls whole faces."""
-    cam = CameraArrays(position=cams.position[:, None, None, :],
-                       basis=cams.basis[:, None, None, :, :])
-    tv = transform_vertices(scene.cpos, cam, settings, width, height)
-    c_sx, c_sy, c_sz = tv.sx, tv.sy, tv.sz          # (I, T, 3)
-    cam_z = tv.cam[..., 2]
-    faces, fog = scene.faces, scene.fog
-
-    near_ok = (cam_z > NEAR_PLANE).all(dim=-1)
-    signed_area = ((c_sx[..., 1] - c_sx[..., 0]) * (c_sy[..., 2] - c_sy[..., 0])
+    backface culling, which skips their backface phase,
+    scene.rs:134-138), and none in x-ray mode; front edges those of valid
+    front faces.  The near plane rejects a face (not under ortho) and fog
+    culls whole faces (`fog_cull_distance` broadcasts against cam_z's
+    faces)."""
+    if settings.ortho_projection is None:
+        near_ok = (cam_z > NEAR_PLANE).all(dim=-1)
+    else:
+        near_ok = torch.ones_like(cam_z[..., 0], dtype=torch.bool)
+    signed_area = ((c_sx[..., 1] - c_sx[..., 0])
+                   * (c_sy[..., 2] - c_sy[..., 0])
                    - (c_sx[..., 2] - c_sx[..., 0])
                    * (c_sy[..., 1] - c_sy[..., 0]))
     is_backface = signed_area <= 0.0
-    fog_cull = fog.enabled & (cam_z > fog.cull_distance[:, None]).all(dim=-1)
-    common = faces.valid & near_ok & ~fog_cull
-    back_face = common & is_backface & ~faces.double_sided
+    fog_cull = fog_enabled & (cam_z > fog_cull_distance).all(dim=-1)
+    common = valid & near_ok & ~fog_cull
+    back_face = common & is_backface & ~double_sided
     if settings.xray_mode:
         back_face = torch.zeros_like(back_face)
     front_face = common & ~is_backface
@@ -213,8 +229,37 @@ def wireframe_edges_flat(scene, cams: CameraArrays,
     ez = torch.stack([c_sz[..., a], c_sz[..., b]], dim=-1).reshape(n, 3 * t,
                                                                     2)
     return (ex, ey, ez, back_face.repeat_interleave(3, dim=-1),
-            front_face.repeat_interleave(3, dim=-1),
-            scene.f_group.repeat_interleave(3))
+            front_face.repeat_interleave(3, dim=-1))
+
+
+def wireframe_edges_flat(scene, cams: CameraArrays,
+                         settings: RasterSettings, width: int, height: int):
+    """The edges of every face of a FlatScene for each camera of `cams`
+    ((I,) CameraArrays), from the corners in their original winding (the
+    wireframe phase reads vertices before the backface swap): `_face_edges`
+    with the faces' own room fog, plus each edge's draw group (E,)."""
+    cam = CameraArrays(position=cams.position[:, None, None, :],
+                       basis=cams.basis[:, None, None, :, :])
+    tv = transform_vertices(scene.cpos, cam, settings, width, height)
+    faces, fog = scene.faces, scene.fog
+    return _face_edges(tv.sx, tv.sy, tv.sz, tv.cam[..., 2], faces.valid,
+                       faces.double_sided, fog.enabled,
+                       fog.cull_distance[:, None], settings) + (
+        scene.f_group.repeat_interleave(3),)
+
+
+def wireframe_edges(mesh, faces, cams: CameraArrays, fog,
+                    settings: RasterSettings, width: int, height: int):
+    """The edges of one mesh's faces (render.rs:2373-2513) for each camera
+    of `cams`: `_face_edges` under the mesh's fog."""
+    cam = CameraArrays(position=cams.position[:, None, :],
+                       basis=cams.basis[:, None, :, :])
+    tv = transform_vertices(mesh.pos, cam, settings, width, height)
+    vi = faces.vidx.long()
+    return _face_edges(tv.sx[:, vi], tv.sy[:, vi], tv.sz[:, vi],
+                       tv.cam[..., 2][:, vi], faces.valid,
+                       faces.double_sided, fog.enabled, fog.cull_distance,
+                       settings)
 
 
 def wires_on(settings: RasterSettings) -> bool:
@@ -256,3 +301,31 @@ def render_wireframes_flat(color, depth, scene, cams: CameraArrays,
             _scatter_lines(buf, depth, bx, by, bz, m, word, max_steps,
                            tested, s)
     return buf[:-1].reshape(n, height, width)
+
+
+def render_wireframes(fb, mesh, faces, cams: CameraArrays, fog,
+                      settings: RasterSettings, depth_mode: str = "harmonic",
+                      max_steps: int = MAX_STEPS):
+    """The WIREFRAME phase of one render_mesh_15 (render.rs:2573-2633)
+    over (I, H, W) framebuffers: the back edges depth-tested against
+    `fb.depth` (an inverse-z or a harmonic plane, `depth_mode`), then the
+    front edges untested.  Returns the FrameBuffers; depth is not
+    written."""
+    n, height, width = fb.color.shape
+    buf = torch.empty(n * height * width + 1, dtype=fb.color.dtype,
+                      device=fb.color.device)
+    buf[:-1] = fb.color.reshape(-1)
+    ex, ey, ez, back, front = wireframe_edges(mesh, faces, cams, fog,
+                                              settings, width, height)
+    passes = []
+    if settings.backface_cull and settings.backface_wireframe:
+        passes.append((back, _pack_rgb(BACKFACE_COLOR), True))
+    if settings.wireframe_overlay:
+        passes.append((front, _pack_rgb(FRONTFACE_COLOR), False))
+    for which, word, tested in passes:
+        m = _dedup_mask(ex, ey, which)
+        bx, by, bz = _normalize_edge_order(ex, ey, ez)
+        _scatter_lines(buf, fb.depth, bx, by, bz, m, word, max_steps, tested,
+                       0, depth_mode)
+    return FrameBuffers(color=buf[:-1].reshape(n, height, width),
+                        depth=fb.depth)

@@ -11,6 +11,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -69,6 +70,16 @@ class CameraArrays(NamedTuple):
     basis: torch.Tensor     # (..., 3, 3) f32 rows (basis_x, basis_y, basis_z)
 
 
+class Fog(NamedTuple):
+    """Per-room fog: render_mesh_15's `fog` tuple (render.rs:2309)."""
+
+    enabled: torch.Tensor        # () bool
+    start: torch.Tensor          # () f32
+    falloff: torch.Tensor        # () f32
+    cull_distance: torch.Tensor  # () f32
+    color: torch.Tensor          # (3,) i32 rgb 0-255
+
+
 class Surfaces(NamedTuple):
     """Projected, culled, fogged triangles; (I, T, ...) when batched."""
 
@@ -97,6 +108,46 @@ class FrameBuffers(NamedTuple):
 
     color: torch.Tensor  # (I, H, W) i32
     depth: torch.Tensor  # (I, H, W) f32
+
+
+def empty_lights(pad: int = 8, device=None) -> Lights:
+    """All-disabled lights of capacity `pad`, ambient 0.3, on `device`
+    (default: the card)."""
+    device = resolve_device(device)
+    f32 = torch.float32
+    return Lights(kind=torch.zeros(pad, dtype=torch.int32, device=device),
+                  position=torch.zeros((pad, 3), dtype=f32, device=device),
+                  direction=torch.zeros((pad, 3), dtype=f32, device=device),
+                  color01=torch.zeros((pad, 3), dtype=f32, device=device),
+                  intensity=torch.zeros(pad, dtype=f32, device=device),
+                  radius=torch.zeros(pad, dtype=f32, device=device),
+                  angle=torch.zeros(pad, dtype=f32, device=device),
+                  ambient=torch.tensor(0.3, dtype=f32, device=device))
+
+
+def default_lights(pad: int = 8, device=None) -> Lights:
+    """RasterSettings::default's one directional light (types.rs:1483):
+    direction (-1, -1, -1) normalized, white, intensity 0.7, on `device`
+    (default: the card)."""
+    d = np.array([-1.0, -1.0, -1.0], np.float32)
+    unit = d / np.sqrt(np.float32(d[0] * d[0] + d[1] * d[1] + d[2] * d[2]))
+    lights = empty_lights(pad=pad, device=device)
+    lights.kind[0] = 1
+    lights.direction[0] = torch.from_numpy(unit.astype(np.float32))
+    lights.color01[0] = 1.0
+    lights.intensity[0] = 0.7
+    return lights
+
+
+def no_fog(device=None) -> Fog:
+    """Fog disabled, on `device` (default: the card)."""
+    device = resolve_device(device)
+    return Fog(enabled=torch.tensor(False, device=device),
+               start=torch.tensor(0.0, device=device),
+               falloff=torch.tensor(0.0, device=device),
+               cull_distance=torch.tensor(3.4e38, dtype=torch.float32,
+                                          device=device),
+               color=torch.zeros(3, dtype=torch.int32, device=device))
 
 
 def resolve_device(device=None) -> torch.device:

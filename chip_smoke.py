@@ -111,6 +111,8 @@ MODE_FRAMES = 3        # counted x-ray and painter's frames
 SEED = 0
 PLAIN_CHUNK = 128      # instances per plain-twin call when timing at N_MAIN
 RAGGED = (100, 150)    # a frame (rows, columns) that no tile shape divides
+N_SEQ = 128            # the sequential renderer's batch: one instance chunk
+SEQ_FRAMES = 3         # timed sequential frames at N=1 (1 at N_SEQ)
 
 # The card's peaks (NVIDIA H100 SXM, at its 700 W limit).  The f32 rate
 # is that of uncontracted instructions: 132 SMs x 128 lanes x 1.98 GHz.
@@ -1618,6 +1620,10 @@ def run(dev):
               for name in ms if bounds[name][1] == "operations")
           + f" {card}")
 
+    run_sequential(dev, card, phase_done, reset_counts, read_counts,
+                   actions, env, level, tenv, tlevel, aenv, alevel, senv,
+                   slevel, spawn)
+
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
                 comp: t_counts[comp],
@@ -1683,6 +1689,247 @@ def run(dev):
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
+
+
+def run_sequential(dev, card, phase_done, reset_counts, read_counts,
+                   actions, env, level, glenv, gllevel, aenv, alevel, senv,
+                   slevel, spawn):
+    """The sequential renderer (render.py, models/scene.py; torch code,
+    no kernel of its own but `raster_sky` for a sky) on `dev`:
+
+      * render_mesh_15 of the cube of tests/torch_scenes.py at 320x240 in
+        "fast", "inv" and "harmonic" depth modes and under an ortho view,
+        each against the same call on the CPU (0 differing pixels), and
+        "inv" against "harmonic" (0);
+      * step_and_render on the sequential route (the env without its flat
+        scene) on the Cave-size level, its transparent variant (`glenv`,
+        glazed faces in every blend mode) and the asset level, each at
+        N=1 and N=N_SEQ, game settings: the last frame against the kernel
+        route of the same env, states and actions (0 differing pixels in
+        colour and depth), and no raster_visibility, raster_resolve,
+        raster_composite or raster_bin launch;
+      * the routes the kernels cannot draw, at N=1 through
+        step_and_render: ortho projection (cameras inside the room, whose
+        faces behind them pass the harmonic test on the inverse-z clear),
+        the editor's RasterSettings() on the asset level (five draw
+        groups, backface wires), transparent faces in the first room of
+        the two-room level; each frame against the CPU (0);
+      * the open-air night level on the sequential route: the sky plane
+        from `raster_sky` (one launch a frame), its pixels within one
+        8-bit step of the CPU's, every other pixel exact;
+      * ms per frame of each route at N=1 and N=N_SEQ: CUDA events around
+        the step_and_render loop after one warm-up frame."""
+    import numpy as np
+    import torch
+
+    import torch_render_cases as rc
+    import torch_scenes as ts
+    import torch_seq_cases as sc
+    from bonnie32_tpu_torch import config, rollout
+    from bonnie32_tpu_torch.config import RasterSettings
+    from bonnie32_tpu_torch.game import step as stp
+    from bonnie32_tpu_torch.models import build
+    from bonnie32_tpu_torch.models import level as L
+    from bonnie32_tpu_torch.models import skybox as S
+    from bonnie32_tpu_torch.types import CameraArrays
+
+    cpu = torch.device("cpu")
+    game = RasterSettings.game()
+    raster = ("raster_visibility", "raster_resolve", "raster_composite",
+              "raster_bin")
+
+    # ---- render_mesh_15 on the cube, card vs CPU ----
+    for name in ("ps1_default", "ortho"):
+        frames = {}
+        for mode in rc.MODES:
+            reset_counts()
+            frames[mode] = rc.port_frame(name, mode, dev, HEIGHT, WIDTH)
+            counts = read_counts()
+            if any(counts[k] for k in raster):
+                _fail(f"render_mesh_15 {name} {mode}: launched {counts}")
+            cpu_f = rc.port_frame(name, mode, cpu, HEIGHT, WIDTH)
+            diff = int((frames[mode] != cpu_f).sum())
+            lit = float(((cpu_f >> 24) & 255 == 255).mean())
+            print(f"render_mesh_15, cube {name}, {mode}: {WIDTH}x{HEIGHT}, "
+                  f"card vs CPU {diff} differing pixels, lit {lit:.3f}")
+            if diff or lit == 0.0:
+                _fail(f"render_mesh_15 {name} {mode}: {diff} differing "
+                      f"pixels, lit share {lit}")
+        d = int((frames["inv"] != frames["harmonic"]).sum())
+        print(f"render_mesh_15, cube {name}: inv vs harmonic {d} differing "
+              f"pixels")
+        if d:
+            _fail(f"render_mesh_15 {name}: inv and harmonic differ")
+    phase_done("render_mesh_15, cube")
+
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    times = {}
+
+    def timed_frames(label, n, n_frames, frame, want_sky=0):
+        """`frame(f)` (f = 0 warm-up, then 1..n_frames counted and timed,
+        CUDA events around the loop) on the sequential route: no raster
+        kernel launches, `want_sky` raster_sky launches an instance chunk
+        and frame.  Returns the last frame's result."""
+        frame(0)
+        torch.cuda.synchronize()
+        held = 0
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+            held = torch.cuda.memory_allocated(dev)
+        reset_counts()
+        evs[0].record()
+        for f in range(1, n_frames + 1):
+            out = frame(f)
+        evs[1].record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        ms = evs[0].elapsed_time(evs[1]) / n_frames
+        times[label, n] = ms
+        chunks = -(-n // rollout.INSTANCE_CHUNK)
+        # device memory the frames took above what earlier phases hold
+        peak = ((torch.cuda.max_memory_allocated(dev) - held) / 2 ** 30
+                if dev.type == "cuda" else float("nan"))
+        print(f"sequential route, {label}: N={n} {WIDTH}x{HEIGHT}, "
+              f"{n_frames} frames, {ms:.3f} ms per frame, peak device "
+              f"memory {peak:.2f} GiB above the {held / 2 ** 30:.2f} held, "
+              f"launches {counts} {card}")
+        if any(counts[k] for k in raster):
+            _fail(f"{label}: the sequential route launched {counts}")
+        if counts["raster_sky"] != want_sky * chunks * n_frames:
+            _fail(f"{label}: raster_sky launched {counts['raster_sky']} "
+                  f"times")
+        return out
+
+    def drive(e, lvl, settings, n, n_frames, want_sky=0, label=""):
+        """step_and_render of `n` instances from the spawn point, timed.
+        Returns (states before the last frame, its actions, the last
+        frame)."""
+        rng = np.random.default_rng(SEED + 2)
+        acts = [actions(rng, n) for _ in range(n_frames + 1)]
+        hist = [rollout.initial_states(lvl, ts.spawn_point(lvl), n,
+                                       device=dev)]
+
+        def frame(f):
+            states, fbs = rollout.step_and_render(
+                hist[-1], e, acts[f], settings, height=HEIGHT, width=WIDTH)
+            hist.append(states)
+            return fbs
+
+        fbs = timed_frames(label, n, n_frames, frame, want_sky)
+        if not bool(((fbs.color >> 24) & 255 == 255).any()):
+            _fail(f"{label}: nothing drawn")
+        return hist[-2], acts[n_frames], fbs
+
+    # ---- the sequential route vs the kernel route, game settings ----
+    for name, e, lvl in (("Cave-size level", env, level),
+                         ("transparent level", glenv, gllevel),
+                         ("asset level", aenv, alevel)):
+        if not rollout.kernel_route(e, game):
+            _fail(f"{name}: the kernels do not draw the game settings")
+        seq_env = e._replace(flat=None, flat_static=None)
+        for n, n_frames in ((1, SEQ_FRAMES), (N_SEQ, 1)):
+            prev, act, fbs = drive(seq_env, lvl, game, n, n_frames,
+                                   label=f"{name}, game settings")
+            _, kern = rollout.step_and_render(prev, e, act, game,
+                                              height=HEIGHT, width=WIDTH)
+            diff = int((kern.color != fbs.color).sum())
+            ddiff = int((kern.depth != fbs.depth).sum())
+            print(f"sequential route, {name}: N={n}, last frame vs the "
+                  f"kernel route {diff} differing pixels, {ddiff} depth")
+            if diff or ddiff:
+                _fail(f"{name}: sequential vs kernel route at N={n}: "
+                      f"{diff} pixels, {ddiff} depth")
+    phase_done("sequential route vs kernel route")
+
+    # ---- the routes the kernels cannot draw, card vs CPU ----
+    def cpu_env_of(name):
+        lvl, tex, kw, _ = sc.level_args(name)
+        return lvl, rollout.build_env(lvl, tex, ts.resolver, device=cpu,
+                                      **kw)
+
+    ortho = ts.ortho_settings(config)
+    tlevel, tex, kw, _ = sc.level_args("transparent_first_room")
+    tenv = rollout.build_env(tlevel, tex, ts.resolver, device=dev, **kw)
+    routes = (("ortho, Cave-size level", env, level, ortho, "cave"),
+              ("editor RasterSettings(), asset level", aenv, alevel,
+               RasterSettings(), "asset"),
+              ("transparent faces in the first room", tenv, tlevel, game,
+               "transparent_first_room"))
+    poses = sc.POSES["cave"]
+    room_cams = CameraArrays(
+        torch.tensor([p for p, _, _ in poses], device=dev),
+        torch.from_numpy(np.stack([build.camera_basis(pi, ya)
+                                   for _, pi, ya in poses])).to(dev))
+    for label, e, lvl, settings, cname in routes:
+        if rollout.kernel_route(e, settings):
+            _fail(f"{label}: routed to the kernels")
+        ortho_route = settings.ortho_projection is not None
+        for n, n_frames in ((1, SEQ_FRAMES), (N_SEQ, 1)):
+            if ortho_route:
+                # the character camera stands outside the room, where no
+                # face lies behind it and nothing passes: time the render
+                # half from cameras inside the room instead
+                idx = torch.arange(n, device=dev) % len(poses)
+                cams_n = CameraArrays(room_cams.position[idx],
+                                      room_cams.basis[idx])
+                timed_frames(label, n, n_frames,
+                             lambda f, c=cams_n: rollout.render_cameras(
+                                 e, c, settings, HEIGHT, WIDTH))
+            else:
+                prev, act, _ = drive(e, lvl, settings, n, n_frames,
+                                     label=label)
+        _, cenv = cpu_env_of(cname)
+        if ortho_route:
+            sub = room_cams
+        else:
+            cams = stp.character_camera(stp.tick(
+                prev, e.grid, e.params, act, 1.0 / 60.0), e.params)
+            sub = CameraArrays(cams.position[:1], cams.basis[:1])
+        card_f = rollout.render_cameras(e, sub, settings, HEIGHT, WIDTH)
+        cpu_f = rollout.render_cameras(cenv, CameraArrays(
+            *(x.cpu() for x in sub)), settings, HEIGHT, WIDTH)
+        diff = int((card_f.color.cpu() != cpu_f.color).sum())
+        lit = float(((cpu_f.color >> 24) & 255 == 255).float().mean())
+        print(f"sequential route, {label}: {sub.position.shape[0]} "
+              f"cameras, card vs CPU {diff} differing pixels, lit {lit:.3f}")
+        if diff or lit == 0.0:
+            _fail(f"{label}: card vs CPU {diff} differing pixels, lit {lit}")
+    phase_done("routes the kernels cannot draw")
+
+    # ---- the open-air night level on the sequential route ----
+    sseq = senv._replace(flat=None, flat_static=None)
+    label = "open-air, night sky"
+    for n, n_frames in ((1, SEQ_FRAMES), (N_SEQ, 1)):
+        prev, act, fbs = drive(sseq, slevel, game, n, n_frames, want_sky=1,
+                               label=label)
+    cams = stp.character_camera(stp.tick(prev, sseq.grid, sseq.params, act,
+                                         1.0 / 60.0), sseq.params)
+    sub = CameraArrays(cams.position[:8], cams.basis[:8])
+    cenv = rollout.build_env(ts.open_air_level(L, S), ts.textures(),
+                             ts.resolver, flat=False, device=cpu)
+    card_f = rollout.render_cameras(sseq, sub, game, HEIGHT, WIDTH)
+    cpu_f = rollout.render_cameras(cenv, CameraArrays(
+        *(x.cpu() for x in sub)), game, HEIGHT, WIDTH)
+    step = torch.zeros(cpu_f.color.shape, dtype=torch.int64)
+    for sh in (0, 8, 16, 24):
+        step = torch.maximum(step, (((card_f.color.cpu() >> sh) & 255).long()
+                                    - ((cpu_f.color >> sh) & 255).long()
+                                    ).abs())
+    sky = cpu_f.depth == 0.0
+    print(f"sequential route, {label}: {sub.position.shape[0]} cameras, "
+          f"card vs CPU: face pixels differing "
+          f"{int((step[~sky] > 0).sum())} of {int((~sky).sum())}, sky "
+          f"pixels one step off {int((step[sky] == 1).sum())}, beyond "
+          f"{int((step[sky] > 1).sum())} of {int(sky.sum())}")
+    if bool((step[~sky] > 0).any()) or bool((step[sky] > 1).any()):
+        _fail(f"{label}: card and CPU differ beyond the sky's one step")
+    if not bool(sky.any()) or not bool((~sky).any()):
+        _fail(f"{label}: no sky or no face pixel")
+    phase_done("sequential route, night sky")
+    print("sequential route, ms per frame (step_and_render, CUDA events, "
+          "after one warm-up frame): " + ", ".join(
+              f"{k[0]} N={k[1]} {v:.3f}" for k, v in times.items())
+          + f" {card}")
 
 
 if __name__ == "__main__":

@@ -48,6 +48,7 @@ from bonnie32_tpu_torch.models import mesh as TM
 from bonnie32_tpu_torch.models import scene as tscene
 from bonnie32_tpu_torch.models import scene_flat as tsf
 from bonnie32_tpu_torch.models import user_texture as TU
+from bonnie32_tpu_torch.ops import wireframe as wf
 from test_torch_composite import CLEAR, _budget, _jax_render, _np
 from test_torch_scene import LIGHT_SPECS, _FLAT_FIELDS, _field
 
@@ -227,13 +228,18 @@ def test_asset_rollout_matches_jax(refs, port):
     diff = int((fb.color.numpy() != jcolor).sum())
     assert diff <= _budget(jcolor.size, N_ROLL), diff
     # the editor's backface wires over the level's five draw groups are
-    # the sequential renderer's
+    # the sequential renderer's: the kernel route refuses them and
+    # step_and_render takes the sequential route (held against the JAX
+    # package in tests/test_torch_rollout_refused.py)
+    editor = RasterSettings()
+    assert not trollout.kernel_route(env, editor)
     with pytest.raises(NotImplementedError):
-        trollout.step_and_render(
-            interop.game_state(jstates), env,
-            tstep.Actions(**{k: torch.from_numpy(v)
-                             for k, v in acts.items()}),
-            RasterSettings(), height=48, width=64)
+        tsf.check_slice(env.flat_static, editor)
+    _, efb = trollout.step_and_render(
+        interop.game_state(jstates), env,
+        tstep.Actions(**{k: torch.from_numpy(v) for k, v in acts.items()}),
+        editor, height=48, width=64)
+    assert bool((efb.color == wf._pack_rgb(wf.BACKFACE_COLOR)).any())
 
 
 def test_point_and_spot_lights_level_matches_jax(refs):

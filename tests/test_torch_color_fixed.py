@@ -123,3 +123,86 @@ def test_project_fixed_matches_golden_and_jax(size):
                                          *(tuple(r) for r in basis), w, h)
         assert (int(sx[i]), int(sy[i])) == (gx, gy)
         assert np.float32(d[i]) == np.float32(gd)
+
+
+# the colour helpers of the sequential renderer's pixel pipeline, on
+# every 16-bit word or a seeded sample of channel values: exact
+_RNG = np.random.default_rng(17)
+_R, _G, _B = (_RNG.integers(0, 40, 4096).astype(np.int32) for _ in range(3))
+_STP = _RNG.random(4096) < 0.5
+_V8A, _V8B = (_RNG.integers(0, 256, 4096).astype(np.int32) for _ in range(2))
+_MODE = _RNG.integers(0, 6, 4096).astype(np.int32)
+_XY = (_RNG.integers(0, 400, 4096).astype(np.int32),
+       _RNG.integers(0, 300, 4096).astype(np.int32))
+COLOR_HELPERS = {
+    "pack15": lambda m, a: m.pack15(a(_R), a(_G), a(_B), a(_STP)),
+    "pack15_no_stp": lambda m, a: m.pack15(a(_R), a(_G), a(_B)),
+    "is_transparent": lambda m, a: m.is_transparent(a(WORDS)),
+    "is_semi_transparent": lambda m, a: m.is_semi_transparent(a(WORDS)),
+    "r8": lambda m, a: m.r8(a(WORDS)),
+    "g8": lambda m, a: m.g8(a(WORDS)),
+    "b8": lambda m, a: m.b8(a(WORDS)),
+    "from_rgb888": lambda m, a: m.from_rgb888(a(_V8A), a(_V8B), a(_V8A)),
+    "to_rgba_channels": lambda m, a: m.to_rgba_channels(a(WORDS)),
+    "modulate8": lambda m, a: m.modulate8(a(_V8A), a(_V8B)),
+    "dither_offset": lambda m, a: m.dither_offset(a(_XY[0]), a(_XY[1])),
+    "quantize8": lambda m, a: m.quantize8(a(_V8A)),
+    "blend_rgb555": lambda m, a: m.blend_rgb555(
+        (a(_V8A), a(_V8B), a(_V8A)), (a(_V8B), a(_V8A), a(_V8B)),
+        a(_MODE)),
+    "unpack_rgba8": lambda m, a: m.unpack_rgba8(a(
+        (WORDS.astype(np.int64) * 40503 % (1 << 32) - (1 << 31))
+        .astype(np.int32))),
+}
+
+
+@pytest.mark.parametrize("name", sorted(COLOR_HELPERS))
+def test_color_helpers_match_jax(name):
+    ours = COLOR_HELPERS[name](tcol, torch.from_numpy)
+    theirs = COLOR_HELPERS[name](jcol, jnp.asarray)
+    if not isinstance(ours, tuple):
+        ours, theirs = (ours,), (theirs,)
+    assert len(ours) == len(theirs)
+    for o, t in zip(ours, theirs):
+        t = np.asarray(t)
+        np.testing.assert_array_equal(o.numpy().astype(t.dtype), t)
+
+
+@pytest.mark.parametrize("name", ["sample_texture", "texel_flat_index",
+                                  "sample_keyed_bit", "sample_and_key"])
+def test_pixel_sampling_matches_jax(name):
+    """The texel fetch and colour key of ops/pixel.py against the JAX
+    package's on seeded (u, v) over and around [0, 1) (negatives wrap,
+    NaN reads texel 0), texture ids -1..2 and both black_transparent
+    flags: exact."""
+    import torch_scenes as ts
+    from bonnie32_tpu.models import build as jbuild
+    from bonnie32_tpu.ops import pixel as jpx
+    from bonnie32_tpu_torch.models import build as tbuild
+    from bonnie32_tpu_torch.ops import pixel as tpx
+    tex = [ts.checker_texture15(32, 32, with_black=True,
+                                with_transparent=True),
+           ts.checker_texture15(16, 8, c1=0x7C00, c2=0x0000),
+           ts.checker_texture15(8, 8, c1=0x8000, c2=0x03E0)]
+    rng = np.random.default_rng(23)
+    u = rng.uniform(-2.5, 3.5, 8192).astype(np.float32)
+    v = rng.uniform(-2.5, 3.5, 8192).astype(np.float32)
+    u[:16] = np.nan
+    tid = rng.integers(-1, 3, 8192).astype(np.int32)
+    bt = rng.random(8192) < 0.5
+    ta, ja = tbuild.build_atlas(tex), jbuild.build_atlas(tex)
+
+    def call(mod, atlas, conv):
+        args = (atlas, conv(tid), conv(u), conv(v))
+        if name in ("sample_keyed_bit", "sample_and_key"):
+            args += (conv(bt),)
+        return getattr(mod, name)(*args)
+
+    ours = call(tpx, ta, torch.from_numpy)
+    theirs = call(jpx, ja, jnp.asarray)
+    if not isinstance(ours, tuple):
+        ours, theirs = (ours,), (theirs,)
+    for o, t in zip(ours, theirs):
+        t = np.asarray(t)
+        np.testing.assert_array_equal(o.numpy().astype(t.dtype), t)
+        assert len(np.unique(t)) > 1

@@ -23,18 +23,27 @@ csrc/gather.cu is exact.  The perspective-UV instantiations of
 visibility, resolve (also sky-fused) and the composite equal their twins
 at both sizes, and `step_and_render` with perspective UVs, the editor's
 backface wires, the overlay and placed assets equals the CPU render.
+The sequential renderer (torch code: render_mesh_15 in its three depth
+modes, render_level through the rollout's sequential route, with ortho
+projection, the editor's settings over five draw groups and transparent
+faces in the first of two rooms) equals the CPU on every pixel and
+launches no raster kernel; on the game settings it equals the kernel
+route on the card.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import torch_render_cases as rc
 import torch_scenes as ts
-from bonnie32_tpu_torch import rollout
+import torch_seq_cases as sc
+from bonnie32_tpu_torch import config, rollout
 from bonnie32_tpu_torch.models import level as L
 from bonnie32_tpu_torch.models import skybox as S
 from bonnie32_tpu_torch.config import RasterSettings
 from bonnie32_tpu_torch.game import step as stp
+from bonnie32_tpu_torch.models import build
 from bonnie32_tpu_torch.models import scene_flat
 from bonnie32_tpu_torch.ops import gather as tg
 from bonnie32_tpu_torch.ops import raster_batch as rb
@@ -682,3 +691,120 @@ def test_editor_and_asset_paths_match_cpu(env, name):
         from bonnie32_tpu_torch.ops import wireframe as wf
         rgb = wf.FRONTFACE_COLOR if name == "overlay" else wf.BACKFACE_COLOR
         assert bool((fbs.color == wf._pack_rgb(rgb)).any())
+
+
+# ---- the sequential renderer (models/scene.render_level, render.py) ----
+
+def _seq_env(dev, name):
+    level, tex, kw, _ = sc.level_args(name)
+    return level, tex, kw, rollout.build_env(level, tex, ts.resolver,
+                                             device=dev, **kw)
+
+
+def _kernel_counts():
+    from bonnie32_tpu_torch.ops import _cuda
+    return [k.launches for k in (_cuda.raster_visibility,
+                                 _cuda.raster_resolve,
+                                 _cuda.raster_composite)]
+
+
+# case -> (level, settings, instances in the room's poses (ortho) or the
+# character cameras after a tick)
+SEQ_CASES = {
+    "non_flat": ("cave", RasterSettings.game()),
+    "ortho": ("cave", None),
+    "editor_asset_level": ("asset", RasterSettings()),
+    "transparent_first_room": ("transparent_first_room",
+                               RasterSettings.game()),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SEQ_CASES))
+def test_sequential_route_matches_cpu(env, case):
+    """rollout.render_cameras on the sequential route, on the card, equals
+    the same call on the CPU on every pixel (the port's torch code on both
+    devices), and launches none of the raster kernels."""
+    _, dev, _ = env
+    name, settings = SEQ_CASES[case]
+    settings = settings or ts.ortho_settings(config)
+    level, tex, kw, e = _seq_env(dev, name)
+    if case == "non_flat":
+        e = e._replace(flat=None, flat_static=None)
+    assert not rollout.kernel_route(e, settings)
+    if case == "ortho":
+        poses = sc.POSES["cave"]
+        cams = CameraArrays(
+            torch.tensor([p for p, _, _ in poses], device=dev),
+            torch.from_numpy(np.stack([build.camera_basis(pi, ya)
+                                       for _, pi, ya in poses])).to(dev))
+    else:
+        states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                        device=dev)
+        states = stp.tick(states, e.grid, e.params,
+                          _actions(np.random.default_rng(4), dev),
+                          1.0 / 60.0)
+        cams = stp.character_camera(states, e.params)
+    before = _kernel_counts()
+    fbs = rollout.render_cameras(e, cams, settings, H, W)
+    torch.cuda.synchronize()
+    assert _kernel_counts() == before
+    assert fbs.color.is_cuda
+    cpu_env = rollout.build_env(level, tex, ts.resolver, device="cpu", **kw)
+    out = rollout.render_cameras(
+        cpu_env, CameraArrays(*(x.cpu() for x in cams)), settings, H, W)
+    assert bool(((out.color >> 24) & 255 == 255).any())
+    assert torch.equal(out.color, fbs.color.cpu())
+    assert torch.equal(out.depth, fbs.depth.cpu())
+
+
+@pytest.mark.parametrize("name", ["cave", "transparent", "asset"])
+def test_flat_and_sequential_routes_agree_on_card(env, name):
+    """Game settings: the kernel route and the sequential renderer give
+    the same frame on the card, pixel for pixel."""
+    _, dev, _ = env
+    if name == "transparent":
+        level = ts.transparent_cave_level(L)
+        e = rollout.build_env(level, ts.transparent_textures(), ts.resolver,
+                              device=dev)
+    else:
+        level, _, _, e = _seq_env(dev, name)
+    settings = RasterSettings.game()
+    assert rollout.kernel_route(e, settings)
+    states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                    device=dev)
+    states = stp.tick(states, e.grid, e.params,
+                      _actions(np.random.default_rng(6), dev), 1.0 / 60.0)
+    cams = stp.character_camera(states, e.params)
+    flat = rollout.render_cameras(e, cams, settings, H, W)
+    seq = rollout.render_sequential(e, cams, settings, H, W)
+    assert torch.equal(flat.color, seq.color)
+    assert torch.equal(flat.depth, seq.depth)
+
+
+@pytest.mark.parametrize("mode", ["fast", "inv", "harmonic"])
+@pytest.mark.parametrize("name", ["ps1_default", "ortho", "blend_modes",
+                                  "backface_wireframe"])
+def test_render_mesh_15_matches_cpu(env, name, mode):
+    """render_mesh_15 of tests/torch_render_cases.py's cube on the card
+    equals the CPU's, in each depth mode."""
+    _, dev, _ = env
+    assert np.array_equal(rc.port_frame(name, mode, device=dev),
+                          rc.port_frame(name, mode))
+
+
+def test_flat_centroids_match_cpu(env):
+    """build_surfaces_flat's centroid z (the sort key of transparent faces
+    and of painter's mode) divides by a tensor 3: on the card as on the
+    CPU, where a Python divisor would become a multiply by its
+    reciprocal, an ulp off on a third of the faces."""
+    level, dev, e = env
+    states = rollout.initial_states(level, ts.spawn_point(level), N,
+                                    device=dev)
+    cams = stp.character_camera(states, e.params)
+    settings = RasterSettings.game()
+    card = scene_flat.build_surfaces_flat(e.flat, cams, settings, W, H)
+    cpu_env = rollout.build_env(level, ts.textures(), ts.resolver,
+                                device="cpu")
+    cpu = scene_flat.build_surfaces_flat(
+        cpu_env.flat, CameraArrays(*(x.cpu() for x in cams)), settings, W, H)
+    assert torch.equal(card.centroid_z.cpu(), cpu.centroid_z)

@@ -27,13 +27,17 @@ from bonnie32_tpu import rollout as jrollout
 from bonnie32_tpu.config import RasterSettings
 from bonnie32_tpu.game import step as jstep
 from bonnie32_tpu.models import level as JL
+from bonnie32_tpu_torch import batch as tbatch
 from bonnie32_tpu_torch import interop
 from bonnie32_tpu_torch import rollout as trollout
+from bonnie32_tpu_torch import types as ttypes
 from bonnie32_tpu_torch.models import level as TL
 from bonnie32_tpu_torch.game import collision as tcol
 from bonnie32_tpu_torch.game import state as tstate
 from bonnie32_tpu_torch.game import step as tstep
+from bonnie32_tpu_torch.models import scene as tscene
 from bonnie32_tpu_torch.models import scene_flat as tsf
+from bonnie32_tpu_torch.ops import raster_ref
 
 N, H, W, FRAMES = 3, 48, 64, 3
 _np = lambda tree: jax.tree_util.tree_map(np.asarray, tree)  # noqa: E731
@@ -120,6 +124,15 @@ ENTRY_POINTS = {
     "compile_collision": lambda lv: tcol.compile_collision(lv),
     "player_params": lambda lv: tcol.player_params(lv),
     "new_state": lambda lv: tstate.new_state(2, 4),
+    "compile_level": lambda lv: tscene.compile_level(lv, ts.textures(),
+                                                     ts.resolver),
+    "new_framebuffer": lambda lv: raster_ref.new_framebuffer(4, 4),
+    "batched_framebuffers": lambda lv: tbatch.batched_framebuffers(2, 4, 4),
+    "batched_cameras": lambda lv: tbatch.batched_cameras(
+        np.zeros((2, 3)), np.zeros((2, 3, 3))),
+    "no_fog": lambda lv: ttypes.no_fog(),
+    "empty_lights": lambda lv: ttypes.empty_lights(),
+    "default_lights": lambda lv: ttypes.default_lights(),
 }
 
 

@@ -250,10 +250,13 @@ def test_keyable_faces_are_kept(surfaces_and_prep, scenes):
     "ortho", "transparent_not_last", "transparent_perspective_not_last",
     "backface_wires_two_groups", "non_flat", "skybox"])
 def test_unported_configurations_raise(scenes, variant):
-    """What the JAX package hands to its sequential renderer, which is not
-    ported, raises: ortho projection, transparent faces outside the last
-    draw group (also with perspective UVs), backface wires over several
-    draw groups, the non-flat env and the exact sky mesh."""
+    """What the kernel route cannot draw raises when render_level_flat is
+    called directly (rollout.step_and_render sends it to the sequential
+    renderer): ortho projection, transparent faces outside the last draw
+    group (also with perspective UVs), backface wires over several draw
+    groups.  What is still unported raises too: the non-flat env builds,
+    but its 8-bit pipeline (use_rgb555=False) raises; so does the exact
+    sky mesh."""
     from bonnie32_tpu_torch.config import OrthoProjection
     tlevel, tflat, tstatic = scenes[1], scenes[4], scenes[5]
     game = RasterSettings.game()
@@ -279,8 +282,11 @@ def test_unported_configurations_raise(scenes, variant):
     cams = type(cams)(*(x[None] for x in cams))
     with pytest.raises(NotImplementedError):
         if variant == "non_flat":
-            trollout.build_env(tlevel, ts.textures(), ts.resolver,
-                               flat=False, device="cpu")
+            env = trollout.build_env(tlevel, ts.textures(), ts.resolver,
+                                     flat=False, device="cpu")
+            assert env.flat is None and env.scene is not None
+            trollout.render_cameras(env, cams, dataclasses.replace(
+                game, use_rgb555=False), H, W)
         elif variant == "skybox":
             # a level with a skybox builds; of the sky only the
             # triangle-by-triangle mesh walk is still unported

@@ -11,7 +11,10 @@ with a flat ceiling, perimeter walls and four interior wall pieces —
 all opaque; two of the four 64x64 checker textures carry black texels,
 so keyed faces occur.  `transparent_cave_level` glazes 20 of those faces
 with the PS1 blend modes, `transparent_two_room_level` glazes 8 faces of
-the second room only, and `cube_scene` is tests/scenes.py's cube.
+the second room only (the kernel route draws it),
+`transparent_first_room_level` 6 faces of the first (the sequential
+renderer draws it), and `cube_scene` is tests/scenes.py's cube.
+`ortho_settings` puts game settings under an orthographic view.
 
 `asset_level` places an asset of `asset_library` (two mesh parts, one
 double-sided with a user texture from `user_textures`, one with an
@@ -251,6 +254,32 @@ def transparent_two_room_level(L):
                             ("GLASS", "GLOW", "VEIL", "SMOKE")):
         _glaze(L, room.get_sector(x, z).floor, name, TEXTURE_BLENDS[name])
     return level
+
+
+def transparent_first_room_level(L):
+    """The two-room level with 6 transparent faces in its first room (a
+    draw group before the last): a 2x2 pool of its floor and two of its
+    interior wall pieces, so that the reference composites them before
+    the second room draws.  Render with transparent_textures()."""
+    level = two_room_level(L)
+    room = level.rooms[0]
+    for (x, z), name in zip(((1, 1), (2, 1), (1, 2), (2, 2)),
+                            ("GLASS", "GLOW", "VEIL", "SMOKE")):
+        _glaze(L, room.get_sector(x, z).floor, name, TEXTURE_BLENDS[name])
+    for (x, z, d), name in zip(((3, 3, L.NORTH), (5, 4, L.SOUTH)),
+                               ("TINT", "GLASS")):
+        _glaze(L, room.get_sector(x, z).walls(d)[-1], name,
+               TEXTURE_BLENDS[name])
+    return level
+
+
+def ortho_settings(C, zoom=0.05, center_x=0.0, center_y=0.0, **kw):
+    """Game settings of config module `C` under an orthographic view
+    (the editor's ortho views, math.rs:140): `zoom` pixels a world unit
+    (0.05 shows about 6,400 units of a level across 320 pixels), centred
+    on (center_x, center_y) of camera space."""
+    return C.RasterSettings.game(ortho_projection=C.OrthoProjection(
+        zoom=zoom, center_x=center_x, center_y=center_y), **kw)
 
 
 def spawn_point(level):
