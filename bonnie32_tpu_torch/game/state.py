@@ -2,7 +2,14 @@
 (bonnie32_tpu/game/state.py).
 
 Every field of the JAX GameState, batched: per-entity fields are (I, E),
-(I, E, 3) for vectors, and the per-instance scalars are (I,).
+(I, E, 3) for vectors, and the per-instance scalars are (I,).  The entity
+functions work on every instance at once: an entity argument is one slot
+per instance, (I,), or one slot for all; a value is one for all or one
+per instance.
+
+Entity kinds (game/components.rs:223-380 marker components): 0 none,
+1 player, 2 enemy, 3 projectile, 4 item, 5 door, 6 checkpoint, 7 spawn
+point, 8 key.
 """
 
 from typing import NamedTuple
@@ -11,9 +18,19 @@ import torch
 
 from ..types import resolve_device
 
-KIND_PLAYER = 1
-TEAM_NEUTRAL, TEAM_PLAYER = 0, 1
-AI_IDLE = 0
+KIND_NONE, KIND_PLAYER, KIND_ENEMY, KIND_PROJECTILE, KIND_ITEM, \
+    KIND_DOOR, KIND_CHECKPOINT, KIND_SPAWN, KIND_KEY = range(9)
+
+# Team (components.rs:209): Neutral damages everyone.
+TEAM_NEUTRAL, TEAM_PLAYER, TEAM_ENEMY = range(3)
+
+# AiState (components.rs:358).
+AI_IDLE, AI_PATROL, AI_CHASE, AI_ATTACK, AI_RECOVER, AI_FLEE, AI_DEAD = \
+    range(7)
+
+# EnemyType (components.rs:231).
+ENEMY_GRUNT, ENEMY_ARCHER, ENEMY_HEAVY, ENEMY_SWARM, ENEMY_ELITE, \
+    ENEMY_BOSS = range(6)
 
 
 class GameState(NamedTuple):
@@ -164,3 +181,69 @@ def spawn_player(state: GameState, pos, player_settings, hp: int = 100):
                      team=TEAM_PLAYER,
                      hurtbox_radius=player_settings.radius)
     return state._replace(player=e.to(torch.int32)), e
+
+
+def spawn_enemy(state: GameState, pos, hp: int,
+                enemy_type: int = ENEMY_GRUNT):
+    """world.rs:278 — health + velocity + unit-sphere hurtbox."""
+    return spawn(state, KIND_ENEMY, pos, hp=hp, team=TEAM_ENEMY,
+                 subtype=enemy_type, hurtbox_radius=1.0)
+
+
+def spawn_projectile(state: GameState, pos, velocity, damage: int, owner,
+                     team: int = TEAM_NEUTRAL):
+    """world.rs:288 — velocity + 0.5-sphere hitbox, damage attributed to
+    `owner`."""
+    state, e = spawn(state, KIND_PROJECTILE, pos, team=team,
+                     hitbox_active=True, hitbox_radius=0.5,
+                     hitbox_damage=damage, owner=owner)
+    rows = torch.arange(e.shape[0], device=e.device)
+    vel = state.vel.clone()
+    vel[rows, e] = torch.as_tensor(velocity, dtype=vel.dtype,
+                                   device=vel.device)
+    return state._replace(vel=vel), e
+
+
+def spawn_door(state: GameState, pos, required_key: int = -1):
+    """world.rs:297 — closed door, optionally keyed."""
+    return spawn(state, KIND_DOOR, pos, door_key=required_key)
+
+
+def spawn_checkpoint(state: GameState, pos):
+    """world.rs:307 — inactive, respawn offset (0, 1, 0)."""
+    return spawn(state, KIND_CHECKPOINT, pos, respawn_offset=[0.0, 1.0, 0.0])
+
+
+def _slots(state: GameState, e):
+    """(instance rows, entity slots), each (I,) i64, of `e`: one slot per
+    instance or one for all."""
+    n = state.alive.shape[0]
+    dev = state.alive.device
+    e = torch.as_tensor(e, device=dev).long().expand(n)
+    return torch.arange(n, device=dev), e
+
+
+def despawn(state: GameState, e) -> GameState:
+    rows, e = _slots(state, e)
+    new = {}
+    for name, val in (("alive", False), ("kind", KIND_NONE),
+                      ("has_controller", False), ("has_health", False),
+                      ("hitbox_active", False), ("hurtbox_radius", 0.0)):
+        new[name] = getattr(state, name).clone()
+        new[name][rows, e] = val
+    return state._replace(**new)
+
+
+def entity_ref(state: GameState, e):
+    """Generational handle (entity.rs:20): (index, generation), each (I,)
+    i32."""
+    rows, e = _slots(state, e)
+    return e.to(torch.int32), state.generation[rows, e]
+
+
+def is_ref_alive(state: GameState, ref) -> torch.Tensor:
+    """Stale handles (a reused slot bumped the generation) read as dead;
+    (I,) bool."""
+    idx, gen = ref
+    rows, idx = _slots(state, idx)
+    return state.alive[rows, idx] & (state.generation[rows, idx] == gen)

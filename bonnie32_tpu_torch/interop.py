@@ -9,13 +9,15 @@ to feed both implementations the same state, scene and prep.
 import numpy as np
 import torch
 
+from .game import events as ev
 from .game.collision import CollisionGrid, PlayerParams
 from .game.state import GameState
+from .models.scene import CompiledScene
 from .models.scene_flat import FlatScene, FogFaces
 from .ops import raster_batch as rb
 from .ops import skybox as sky_ops
-from .types import (CameraArrays, FaceArrays, Lights, MeshArrays, Surfaces,
-                    TextureAtlas)
+from .types import (CameraArrays, FaceArrays, Fog, Lights, MeshArrays,
+                    Surfaces, TextureAtlas, TextureAtlas8)
 
 
 def _t(a, device):
@@ -28,6 +30,56 @@ def _same_fields(cls, src, device):
 
 def game_state(src, device="cpu") -> GameState:
     return _same_fields(GameState, src, device)
+
+
+def stacked_game_state(src, n: int, device="cpu") -> GameState:
+    """A single-instance JAX GameState repeated to `n` instances."""
+    return GameState(**{
+        f: _t(np.repeat(np.asarray(getattr(src, f))[None], n, 0), device)
+        for f in GameState._fields})
+
+
+def event_queue(src, device="cpu") -> ev.EventQueue:
+    """A JAX EventQueue batched over instances (vmapped: count (I,),
+    lanes (I, C)) -> the port's."""
+    return _same_fields(ev.EventQueue, src, device)
+
+
+def events(src, device="cpu") -> ev.Events:
+    return ev.Events(*(event_queue(q, device) for q in src))
+
+
+def texture_atlas8(src, device="cpu") -> TextureAtlas8:
+    return _same_fields(TextureAtlas8, src, device)
+
+
+def compiled_scene(src, device="cpu") -> CompiledScene:
+    """A JAX CompiledScene (the per-room sequential renderer's), with its
+    8-bit tables where it was compiled with them, without the atlas's
+    TPU key-bit planes.  `a_count` is the number of draws, or 0 where
+    no draw has a face (the JAX scene's one dummy draw of a level without
+    assets)."""
+    def atlas(a):
+        return _same_fields(TextureAtlas, a, device)
+
+    a_valid = np.asarray(src.a_faces.valid).any(axis=1)
+    eight = src.atlas8 is not None
+    return CompiledScene(
+        mesh=_same_fields(MeshArrays, src.mesh, device),
+        faces=_same_fields(FaceArrays, src.faces, device),
+        atlas=atlas(src.atlas), fog=_same_fields(Fog, src.fog, device),
+        ambient=_t(src.ambient, device),
+        lights=_same_fields(Lights, src.lights, device),
+        a_mesh=_same_fields(MeshArrays, src.a_mesh, device),
+        a_faces=_same_fields(FaceArrays, src.a_faces, device),
+        a_atlas=atlas(src.a_atlas),
+        a_fog=_same_fields(Fog, src.a_fog, device),
+        a_ambient=_t(src.a_ambient, device),
+        a_room=_t(src.a_room, device),
+        a_count=len(a_valid) if a_valid.any() else 0,
+        atlas8=texture_atlas8(src.atlas8, device) if eight else None,
+        tex_map=_t(src.tex_map, device) if eight else None,
+        a_atlas8=texture_atlas8(src.a_atlas8, device) if eight else None)
 
 
 def player_params(src, device="cpu") -> PlayerParams:
@@ -108,8 +160,8 @@ def sky_tables(src, skybox, device="cpu") -> sky_ops.SkyTables:
     `skybox` -> the port's SkyTables, so that both sides render from the
     same directions, colours, faces and star phases.  The JAX package's
     padded face list and vertex colours are folded into `face_table` (its
-    own static face descriptor); the mesh tables of the unported exact
-    path are not carried."""
+    own static face descriptor); the exact path's mesh tables are carried
+    as they are."""
     ks = src.kstat
     face_table = np.asarray(
         [[f[0], f[1], f[2], *f[3], *f[4], *f[5]] for f in ks.faces],
@@ -123,4 +175,8 @@ def sky_tables(src, skybox, device="cpu") -> sky_ops.SkyTables:
         star_color=_t(src.star_color, device),
         star_size=float(src.star_size),
         star_twinkle=float(src.star_twinkle),
-        stars_enabled=bool(src.stars_enabled))
+        stars_enabled=bool(src.stars_enabled),
+        all_dirs=_t(src.all_dirs, device),
+        all_colors=_t(src.all_colors, device),
+        all_faces=_t(src.all_faces, device),
+        all_valid=_t(src.all_valid, device))

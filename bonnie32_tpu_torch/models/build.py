@@ -14,7 +14,7 @@ import torch
 
 from ..config import BlendMode
 from ..types import CameraArrays, FaceArrays, Lights, MeshArrays, \
-    TextureAtlas
+    TextureAtlas, TextureAtlas8, resolve_device
 
 
 def _t(a) -> torch.Tensor:
@@ -164,6 +164,52 @@ def build_atlas(textures: Sequence[Tuple[np.ndarray, int]],
         blend_mode=_t(np.asarray(blends, np.int32)),
         has_black=_t(np.asarray(has_black, bool)),
         has_transparent=_t(np.asarray(has_transparent, bool)))
+
+
+def build_atlas8(textures, pad_data_to=None, pad_count_to=None,
+                 device=None) -> TextureAtlas8:
+    """Pack the 8-bit textures of the non-RGB555 pipeline onto `device`
+    (default: the card): (rgba (h, w, 4) uint8, blend_mode) entries, an
+    empty list one 1x1 white texture.  Each texel word carries its blend
+    in byte 3: ERASE where alpha is 0 (types.rs:1095), else OPAQUE.
+    `pad_count_to` appends 1x1 opaque entries at offset 0, `pad_data_to`
+    zero words."""
+    device = resolve_device(device)
+    if not textures:
+        textures = [(np.full((1, 1, 4), 255, np.uint8),
+                     int(BlendMode.OPAQUE))]
+    offsets, widths, heights, blends, chunks = [], [], [], [], []
+    off = 0
+    for rgba, blend in textures:
+        rgba = np.asarray(rgba, np.uint8)
+        h, w = rgba.shape[:2]
+        texel_blend = np.where(rgba[..., 3] == 0, int(BlendMode.ERASE),
+                               int(BlendMode.OPAQUE)).astype(np.int64)
+        word = (rgba[..., 0].astype(np.int64)
+                | (rgba[..., 1].astype(np.int64) << 8)
+                | (rgba[..., 2].astype(np.int64) << 16)
+                | (texel_blend << 24))
+        offsets.append(off)
+        widths.append(w)
+        heights.append(h)
+        blends.append(int(blend))
+        chunks.append(word.reshape(-1).astype(np.int32))
+        off += h * w
+    data = np.concatenate(chunks)
+    if pad_data_to is not None and data.size < pad_data_to:
+        data = np.concatenate([data, np.zeros(pad_data_to - data.size,
+                                              np.int32)])
+    extra = max((pad_count_to or 0) - len(offsets), 0)
+    offsets += [0] * extra
+    widths += [1] * extra
+    heights += [1] * extra
+    blends += [int(BlendMode.OPAQUE)] * extra
+    return TextureAtlas8(
+        data=_t(data).to(device),
+        offset=_t(np.asarray(offsets, np.int32)).to(device),
+        width=_t(np.asarray(widths, np.int32)).to(device),
+        height=_t(np.asarray(heights, np.int32)).to(device),
+        blend_mode=_t(np.asarray(blends, np.int32)).to(device))
 
 
 def camera_basis(pitch: float, yaw: float) -> np.ndarray:

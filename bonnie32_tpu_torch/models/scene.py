@@ -10,7 +10,8 @@ render.render_mesh_15 with its own ambient and fog, then the asset draws
 helpers `collect_scene_lights`, `transform_part_vertices` and
 `resolve_part_texture15` serve models/scene_flat.compile_level_flat too;
 they run on the host in numpy f32, in the reference's operation order.
-The 8-bit pipeline (`use_rgb555=False`) is not ported yet.
+A scene compiled `with_8bit=True` also carries the 8-bit tables that
+`render_level` draws with under `use_rgb555=False` (scene.rs:214-219).
 """
 
 from typing import List, NamedTuple, Optional
@@ -20,14 +21,14 @@ import torch
 
 from ..config import RasterSettings
 from ..render import render_mesh_15
+from ..ops.raster8 import render_mesh8
 from ..types import (CameraArrays, FaceArrays, Fog, FrameBuffers, Lights,
-                     MeshArrays, TextureAtlas, resolve_device, to_device)
+                     MeshArrays, TextureAtlas, no_fog, resolve_device,
+                     to_device)
 from . import build
 from . import mesh as mesh_mod
 
 F32 = np.float32
-_8BIT = ("the 8-bit pipeline (use_rgb555=False: raster8, build_atlas8, "
-         "_render_level8) is not ported yet (ROADMAP.md queue 1)")
 NO_FOG_ROW = (False, 0.0, 0.0, 3.4e38, (0, 0, 0))
 
 
@@ -49,6 +50,11 @@ class CompiledScene(NamedTuple):
     a_ambient: torch.Tensor  # (D,) f32: the containing room's ambient
     a_room: object = None   # (D,) i32: the containing room of each draw
     a_count: int = 0        # draws with faces (the dummy draw is not one)
+    # the 8-bit pipeline's tables (use_rgb555=False, scene.rs:214-219,
+    # 163-168); None unless compiled with_8bit=True
+    atlas8: object = None   # TextureAtlas8: every texture, untrimmed
+    tex_map: object = None  # (R, NT) i32: room-local -> global texture id
+    a_atlas8: object = None  # TextureAtlas8 fields (D, ...)
 
 
 def collect_scene_lights(level, asset_library=None) -> List[dict]:
@@ -133,6 +139,28 @@ def resolve_part_texture15(part, user_textures) -> np.ndarray:
     return atlas.to_texture15(mesh_mod.checkerboard_clut())
 
 
+def _rgba8_from_c15(c15: np.ndarray) -> np.ndarray:
+    """Color15 -> RGBA8 as to_raster_texture (mesh_editor.rs:725-747):
+    5 -> 8 bits as (v << 3) | (v >> 2), texel 0 (transparent) alpha 0
+    (ERASE)."""
+    r5, g5, b5 = (c15 >> 10) & 31, (c15 >> 5) & 31, c15 & 31
+    return np.stack([((r5 << 3) | (r5 >> 2)).astype(np.uint8),
+                     ((g5 << 3) | (g5 >> 2)).astype(np.uint8),
+                     ((b5 << 3) | (b5 >> 2)).astype(np.uint8),
+                     np.where(c15 == 0, 0, 255).astype(np.uint8)], axis=-1)
+
+
+def _tex_rgba8(entry) -> np.ndarray:
+    """The 8-bit view of a texture-table entry: its quantized RGBA8
+    source where it keeps one (PackTexture.rgba8, types.rs:876), else its
+    Color15 texels expanded."""
+    if not isinstance(entry, tuple) \
+            and getattr(entry, "rgba8", None) is not None:
+        return entry.rgba8
+    p15 = entry[0] if isinstance(entry, tuple) else entry.pixels15
+    return _rgba8_from_c15(np.asarray(p15, np.uint16))
+
+
 def _room_fog_params(room):
     """build_room_fog (scene.rs:264-276)."""
     f = room.fog
@@ -181,20 +209,24 @@ _ORIGIN = dict(pos=(0, 0, 0), uv=(0, 0), normal=(0, 0, 0),
 def compile_level(level, textures, resolve,
                   light_specs: Optional[List[dict]] = None,
                   asset_library=None, user_textures=None,
-                  light_pad: int = 8, device=None) -> CompiledScene:
+                  light_pad: int = 8, with_8bit: bool = False,
+                  device=None) -> CompiledScene:
     """Every room (and placed asset part) into stacked padded buffers on
     `device` (default: the card), as the JAX package compiles them.
     `textures`: (pixels15, blend) tuples or objects with `.pixels15`;
     `resolve`: TextureRef -> (id, width) or None.  Each room's texture
     ids are remapped to the textures it samples, in ascending global id
-    order."""
+    order.  `with_8bit` also packs the 8-bit tables: every texture
+    untrimmed (the reference's 8-bit branch samples the full list,
+    scene.rs:214-219), each room's local -> global id map, and each asset
+    draw's Color15 texture expanded as to_raster_texture expands it."""
     device = resolve_device(device)
     per_room = [room.to_render_data(resolve) for room in level.rooms]
     pad_verts = max(max((len(v) for v, _ in per_room), default=1), 1)
     pad_faces = max(max((len(f) for _, f in per_room), default=1), 1)
     tex_list = [t if isinstance(t, tuple) else (t.pixels15, 0)
                 for t in textures]
-    room_tex_lists = []
+    room_tex_lists, room_used = [], []
     for _, faces in per_room:
         used = sorted({f["tex_id"] for f in faces
                        if f.get("tex_id") is not None and f["tex_id"] >= 0})
@@ -205,6 +237,7 @@ def compile_level(level, textures, resolve,
             if f.get("tex_id") is not None and f["tex_id"] >= 0:
                 f["tex_id"] = remap[f["tex_id"]]
         room_tex_lists.append([tex_list[g] for g in used])
+        room_used.append(used)
 
     meshes, face_arrays = [], []
     for room_i, (verts, faces) in enumerate(per_room):
@@ -300,6 +333,20 @@ def compile_level(level, textures, resolve,
             a_face_arrays.append(_no_faces(at_max))
         a_atlases.append(build.build_atlas([(tex15, 0)], pad_data_to=aa_max,
                                            pad_count_to=1))
+    tables8 = {}
+    if with_8bit:
+        tex_map = np.zeros((len(room_used) or 1, nt_max), np.int32)
+        for i, used in enumerate(room_used):
+            tex_map[i, :len(used)] = used
+        tables8 = dict(
+            atlas8=build.build_atlas8(
+                [(_tex_rgba8(t), 0) for t in textures]
+                or [(np.full((1, 1, 4), 255, np.uint8), 0)], device="cpu"),
+            tex_map=torch.from_numpy(tex_map),
+            a_atlas8=_stack([build.build_atlas8(
+                [(_rgba8_from_c15(np.asarray(d[2], np.uint16)), 0)],
+                pad_data_to=aa_max, pad_count_to=1, device="cpu")
+                for d in draws]))
     scene = CompiledScene(
         mesh=_stack(meshes), faces=_stack(face_arrays), atlas=atlas,
         fog=fog, ambient=ambient, lights=lights,
@@ -307,7 +354,7 @@ def compile_level(level, textures, resolve,
         a_atlas=_stack(a_atlases), a_fog=_fog_rows([d[3] for d in draws]),
         a_ambient=torch.from_numpy(np.array([d[4] for d in draws], F32)),
         a_room=torch.from_numpy(np.array(draw_rooms, np.int32)),
-        a_count=a_count)
+        a_count=a_count, **tables8)
     return to_device(scene, device)
 
 
@@ -329,10 +376,14 @@ def render_level(fb: FrameBuffers, scene: CompiledScene,
     (scene.rs:172-178), the world editor's: the rooms listed (and the
     objects placed in them) are skipped, fog can be forced off, and the
     asset draws left out.  Which rooms draw is decided on the host before
-    any launch.  `settings.use_rgb555=False` (the 8-bit pipeline) raises
-    NotImplementedError."""
+    any launch.  `settings.use_rgb555=False` draws with the 8-bit
+    pipeline (`_render_level8`), which needs a scene compiled
+    `with_8bit=True`."""
     if not settings.use_rgb555:
-        raise NotImplementedError(_8BIT)
+        if scene.atlas8 is None:
+            raise ValueError(
+                "use_rgb555=False needs compile_level(..., with_8bit=True)")
+        return _render_level8(fb, scene, cams, settings)
     n_rooms = scene.ambient.shape[0]
     room_ok = [True] * n_rooms
     for r in skip_rooms:
@@ -359,4 +410,33 @@ def render_level(fb: FrameBuffers, scene: CompiledScene,
             fb = draw(fb, _index(scene.a_mesh, i), _index(scene.a_faces, i),
                       _index(scene.a_atlas, i), _index(scene.a_fog, i),
                       scene.a_ambient[i])
+    return fb
+
+
+def _render_level8(fb: FrameBuffers, scene: CompiledScene,
+                   cams: CameraArrays,
+                   settings: RasterSettings) -> FrameBuffers:
+    """The use_rgb555=False branch (scene.rs:216-218 `render_mesh`): every
+    room through ops/raster8.render_mesh8 against the untrimmed 8-bit
+    atlas, its faces' texture ids mapped room-local -> global, without
+    fog (fog is the 15-bit pipeline's); then the asset draws, each
+    against its own 8-bit texture.  As in the JAX package, the depth
+    mode and the editor's scene options do not apply: the 8-bit pipeline
+    tests z < buffer, so the frame must be cleared to F32_MAX (on the
+    inverse-z clear no face passes the z-buffer)."""
+    fog0 = no_fog(device=fb.color.device)
+    for i in range(scene.ambient.shape[0]):
+        faces = _index(scene.faces, i)
+        tid = faces.tex_id
+        faces = faces._replace(tex_id=torch.where(
+            tid >= 0, scene.tex_map[i][torch.clamp(tid, min=0).long()], tid))
+        fb = render_mesh8(fb, _index(scene.mesh, i), faces, scene.atlas8,
+                          cams, scene.lights._replace(
+                              ambient=scene.ambient[i]), fog0, settings)
+    for i in range(scene.a_count):
+        fb = render_mesh8(fb, _index(scene.a_mesh, i),
+                          _index(scene.a_faces, i),
+                          _index(scene.a_atlas8, i), cams,
+                          scene.lights._replace(ambient=scene.a_ambient[i]),
+                          fog0, settings)
     return fb

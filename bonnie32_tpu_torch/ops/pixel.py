@@ -26,6 +26,13 @@ from .raster_batch import (C_IZA, C_IZB, C_IZC, C_U0, C_U1, C_U2, C_VV0,
                            C_VV1, C_VV2, _face_uv, _interp3, _texel_index,
                            _u8_trunc_sat, _wrap01)
 
+# Rust `f32 as u8` (truncate, saturate to [0, 255], NaN -> 0) and the
+# reference's interpolation order (bx a0 + by a1) + bz a2, by the JAX
+# package's names
+u8_trunc_sat = _u8_trunc_sat
+interp3 = _interp3
+
+
 class PixelColor(NamedTuple):
     r8: torch.Tensor
     g8: torch.Tensor

@@ -30,11 +30,17 @@ itself without it.  The mountains use only + - * / and agree bit for bit;
 the sphere goes through acos, atan2, sin and pow, whose last bits differ
 between libraries, so a sky pixel may sit one 8-bit step from its twin.
 
+`render_skybox(exact=True)` is the reference's own clear instead
+(fb.render_skybox, render.rs:81-145): the generated sphere mesh (48 x 32
+segments, its colours sampled at the vertices) and the mountains,
+rasterized triangle by triangle over the frame it is given, the last
+covering face winning, then the stars.  It is torch code (no kernel),
+chunks of faces at a time (`_exact_mesh_pass`).
+
 Not carried over from the JAX package: the (NG*H, 128) lane layout, the
 zero-leaf pytree wrappers that made the config static under jit, the
 minimax acos/atan2 (Mosaic has no lowering for the real ones), and the
-per-chunk gating.  The triangle-for-triangle mesh path (`exact=True`)
-raises NotImplementedError.
+per-chunk gating.
 """
 
 import math
@@ -81,6 +87,12 @@ class SkyTables(NamedTuple):
     star_size: float
     star_twinkle: float
     stars_enabled: bool
+    # the whole generated mesh, sphere then mountains (generate_mesh
+    # order, geometry.rs:529-733), for render_skybox(exact=True)
+    all_dirs: torch.Tensor = None    # (V, 3) f32 unit * per-range scale
+    all_colors: torch.Tensor = None  # (V, 3) i32
+    all_faces: torch.Tensor = None   # (F, 3) i32
+    all_valid: torch.Tensor = None   # (F,) bool
 
 
 class SkyBackground(NamedTuple):
@@ -107,6 +119,14 @@ def build_sky_tables(skybox, time: float = 0.0, device=None) -> SkyTables:
     mdirs, mcolors, mfaces = skybox.generate_mountains(time)
     vpad = max(8, -(-max(len(mdirs), len(mfaces), 10) // 8) * 8)
     face_table = _face_table(mfaces, mcolors)
+    # the exact path's mesh: the sphere, then the mountains
+    sdirs_m, scolors, sfaces_m = skybox.generate_sphere(time)
+    all_dirs, all_colors, all_faces = sdirs_m, scolors, sfaces_m
+    if len(mdirs):
+        all_dirs = np.concatenate([sdirs_m, mdirs])
+        all_colors = np.concatenate([scolors, mcolors])
+        all_faces = np.concatenate(
+            [sfaces_m, np.asarray(mfaces, np.int32) + len(sdirs_m)])
     if len(mdirs) == 0:
         mdirs = np.zeros((1, 3), np.float32)
 
@@ -139,7 +159,10 @@ def build_sky_tables(skybox, time: float = 0.0, device=None) -> SkyTables:
         star_color=t(stars.color, np.int32),
         star_size=float(np.float32(stars.size)),
         star_twinkle=float(np.float32(stars.twinkle_speed)),
-        stars_enabled=bool(stars.enabled))
+        stars_enabled=bool(stars.enabled),
+        all_dirs=t(all_dirs, np.float32), all_colors=t(all_colors, np.int32),
+        all_faces=t(all_faces, np.int32),
+        all_valid=t(np.ones(len(all_faces), bool), bool))
 
 
 def body_unit_dir(body):
@@ -642,20 +665,137 @@ def sky_kernel_ok(sky, static, settings) -> bool:
     return True
 
 
+# elements of one chunk's (I, K, H, W) coverage planes in the exact mesh
+# pass: the chunk's face count K follows from the frame and batch size
+EXACT_CHUNK_ELEMS = 1 << 24
+
+
+def exact_face_setup(sky: SkyTables, cams: CameraArrays, height: int,
+                     width: int):
+    """Per mesh face and instance, what rasterize_skybox_triangle
+    (render.rs:246-299) needs, as the JAX package's exact path computes
+    it: (ok (I, F) bool, corners x (3 of (I, F)), y (3 of (I, F)), 1/dnm
+    (I, F), colours (F, 9) f64).  A face is ok where it is valid, its
+    three vertices lie in front of the camera, it faces inward (signed
+    area < 0, render.rs:124) and its barycentric denominator is not
+    tiny."""
+    vvalid, vx, vy = _project(_rotate(sky.all_dirs * 10000.0,
+                                      cams.basis.to(_F32)), width, height)
+    f = sky.all_faces.long()
+    x0, x1, x2 = (vx[:, f[:, j]] for j in range(3))
+    y0, y1, y2 = (vy[:, f[:, j]] for j in range(3))
+    ok = (sky.all_valid[None] & vvalid[:, f[:, 0]] & vvalid[:, f[:, 1]]
+          & vvalid[:, f[:, 2]])
+    signed = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    dnm = (y1 - y2) * (x0 - x2) + (x2 - x1) * (y0 - y2)
+    ok = ok & (signed < 0.0) & (dnm.abs() >= 0.0001)
+    inv = torch.ones_like(dnm) / torch.where(dnm == 0,
+                                             torch.ones_like(dnm), dnm)
+    colors = sky.all_colors[f].reshape(-1, 9).to(torch.float64)
+    return ok, (x0, x1, x2), (y0, y1, y2), inv, colors
+
+
+def exact_face_cover(xs, ys, inv, px, py):
+    """Barycentrics (w0, w1, w2) of the pixel centres (px, py) and
+    coverage, the corners and 1/dnm broadcasting against them
+    (render.rs:262-281)."""
+    x0, x1, x2 = xs
+    y0, y1, y2 = ys
+    w0 = ((y1 - y2) * (px - x2) + (x2 - x1) * (py - y2)) * inv
+    w1 = ((y2 - y0) * (px - x2) + (x0 - x2) * (py - y2)) * inv
+    w2 = 1.0 - w0 - w1
+    return (w0, w1, w2), (w0 >= 0.0) & (w1 >= 0.0) & (w2 >= 0.0)
+
+
+def exact_face_color(w, cols):
+    """The covered pixel's colour channels (render.rs:283-290): each
+    w0 c0 + w1 c1 + w2 c2, truncated and clipped to [0, 255]; `cols` (9
+    columns (r, g, b) per corner, f64) broadcasts against the w planes.
+    The products and their sum are taken in f64 and rounded to f32 once,
+    as the golden transcription of the reference does
+    (tests/golden/skybox_golden.py); the JAX package sums in f32, which
+    truncates one step lower where the sum lands just below an integer."""
+    w0, w1, w2 = (x.to(torch.float64) for x in w)
+    return [f32_to_i32(torch.clamp(torch.trunc((
+        w0 * cols[..., j] + w1 * cols[..., 3 + j] + w2 * cols[..., 6 + j]
+    ).to(_F32)), 0.0, 255.0)) for j in range(3)]
+
+
+def _exact_mesh_pass(color, sky: SkyTables, cams: CameraArrays):
+    """The mesh walk of render_skybox(exact=True): every face in order
+    over `color` (I, H, W) packed words, the last covering face winning.
+    Faces that no instance draws are dropped first (one read on the
+    host); the rest go in chunks of K, each an order-free reduction: the
+    covering face of highest index in the chunk wins a pixel (an amax),
+    its barycentrics are evaluated again at the pixels it won (the same
+    f32 expressions on the same values) and its colour written, so that
+    the frame equals the face-by-face loop.  Returns the (r, g, b)
+    planes."""
+    n, height, width = color.shape
+    dev = color.device
+    ok, xs, ys, inv, cols = exact_face_setup(sky, cams, height, width)
+    chans = list(col.unpack_rgba8(color)[:3])
+    live = torch.nonzero(ok.any(0)).flatten()
+    if live.numel() == 0:
+        return chans
+    px = torch.arange(width, device=dev, dtype=_F32)[None, None, :] + 0.5
+    py = torch.arange(height, device=dev, dtype=_F32)[None, :, None] + 0.5
+    rows = torch.arange(n, device=dev)[:, None, None]
+    k = max(1, min(live.numel(), EXACT_CHUNK_ELEMS // (n * height * width)))
+    for start in range(0, live.numel(), k):
+        fids = live[start:start + k]
+        kk = fids.numel()
+        c_ok = ok[:, fids]                                      # (I, K)
+        c_xs = [x[:, fids] for x in xs]
+        c_ys = [y[:, fids] for y in ys]
+        c_inv = inv[:, fids]
+
+        def at_faces(v):                   # (I, K) -> (I, K, 1, 1)
+            return v[:, :, None, None]
+
+        _, cov = exact_face_cover([at_faces(x) for x in c_xs],
+                                  [at_faces(y) for y in c_ys],
+                                  at_faces(c_inv), px[:, None], py[:, None])
+        slot = torch.arange(kk, device=dev, dtype=_I32)[None, :, None, None]
+        win = torch.where(cov & at_faces(c_ok), slot,
+                          torch.full_like(slot, -1)).amax(1)    # (I, H, W)
+        drawn = win >= 0
+        wl = win.clamp(min=0).long()
+
+        def at_win(v):                     # (I, K) -> (I, H, W)
+            return v[rows, wl]
+
+        w, _ = exact_face_cover([at_win(x) for x in c_xs],
+                                [at_win(y) for y in c_ys], at_win(c_inv),
+                                px, py)
+        new = exact_face_color(w, cols[fids][wl])
+        chans = [torch.where(drawn, nc, c) for nc, c in zip(new, chans)]
+    return chans
+
+
 def render_skybox(sky: SkyTables, cams: CameraArrays, height: int,
-                  width: int, time=None, exact: bool = False) -> FrameBuffers:
+                  width: int, time=None, exact: bool = False,
+                  fb: FrameBuffers = None) -> FrameBuffers:
     """fb.render_skybox (render.rs:81-145) + stars (:149-237) for every
-    camera: (I, H, W) colour and the cleared inverse-z depth.  The sphere
-    is the analytic sky function at each pixel's exact direction; `time`
+    camera: (I, H, W) colour and the cleared inverse-z depth.  `time`
     (cloud scroll, twinkle) defaults to the tables' generation time.
-    `exact=True` (the triangle-for-triangle mesh walk) is not ported."""
-    if exact:
-        raise NotImplementedError(
-            "render_skybox(exact=True), the sky mesh rasterized triangle "
-            "by triangle, is not ported (ROADMAP.md queue 1, item 10)")
+
+    exact=False: the sphere is the analytic sky function at each pixel's
+    exact direction (`raster_sky` on the card), the mountains over it.
+    exact=True: the generated sphere and mountain mesh, rasterized
+    triangle by triangle (`_exact_mesh_pass`) over the frame `fb`
+    ((I, height, width) FrameBuffers, required), as the reference clears
+    with it; every pixel's alpha becomes 255."""
     time = sky.time if time is None else time
-    scal = prep_sky_scal(sky, cams, width, height, time=time)
-    color = render_sky_plane(sky, scal, height, width)
+    if exact:
+        if fb is None or tuple(fb.color.shape[1:]) != (height, width):
+            raise ValueError("render_skybox(exact=True) draws over a frame: "
+                             f"pass fb of shape (I, {height}, {width})")
+        r, g, b = _exact_mesh_pass(fb.color, sky, cams)
+        color = col.pack_rgba8(r, g, b, torch.full_like(r, 255))
+    else:
+        scal = prep_sky_scal(sky, cams, width, height, time=time)
+        color = render_sky_plane(sky, scal, height, width)
     if sky.stars_enabled:
         color = scatter_stars(color, None, sky, cams, time=time)
     return FrameBuffers(color=color, depth=torch.zeros(

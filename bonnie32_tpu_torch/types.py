@@ -50,6 +50,18 @@ class TextureAtlas(NamedTuple):
     has_transparent: torch.Tensor  # (NT,) bool any texel word == 0
 
 
+class TextureAtlas8(NamedTuple):
+    """8-bit textures of the non-RGB555 pipeline (`&[Texture]`,
+    types.rs:1236).  Texel word r | g<<8 | b<<16 | blend<<24, the blend
+    the texel's BlendMode (ERASE: a transparent texel, types.rs:1095)."""
+
+    data: torch.Tensor        # (A,) i32 packed texels
+    offset: torch.Tensor      # (NT,) i32
+    width: torch.Tensor       # (NT,) i32
+    height: torch.Tensor      # (NT,) i32
+    blend_mode: torch.Tensor  # (NT,) i32 texture-level BlendMode
+
+
 class Lights(NamedTuple):
     """Scene lights; kind 0 disabled, 1 directional, 2 point, 3 spot."""
 

@@ -83,7 +83,12 @@ the JAX package.  In order:
      behind a long matrix product, so that its launches are queued before
      the first runs and the time is the card's, not the host's.  Prints
      the live entries per instance and the mean and maximum number of
-     entries per tile of each list.
+     entries per tile of each list;
+  6. the sequential renderer (`run_sequential`) and the game's play path
+     (`run_play`: a level saved and loaded through the native RON parser,
+     GameToolState with scripted gamepad input, render_game_view at three
+     sizes in RGB555 and 8-bit, the 8-bit render_level, the exact sky
+     mesh and the ECS systems, each against the CPU), with their times.
 
 ptxas' register count of every kernel instantiation is printed as one
 JSON object after the build.  The last two lines of standard output are
@@ -113,6 +118,11 @@ PLAIN_CHUNK = 128      # instances per plain-twin call when timing at N_MAIN
 RAGGED = (100, 150)    # a frame (rows, columns) that no tile shape divides
 N_SEQ = 128            # the sequential renderer's batch: one instance chunk
 SEQ_FRAMES = 3         # timed sequential frames at N=1 (1 at N_SEQ)
+PLAY_FRAMES = 6        # scripted gamepad frames before the game views
+N_PLAY8 = 128          # the 8-bit pipeline's batch
+N_SKY_EXACT = 8        # the exact sky mesh walk's batch
+N_ECS = 1024           # instances of the ECS systems
+ECS_CAPACITY = 16      # entity slots an instance
 
 # The card's peaks (NVIDIA H100 SXM, at its 700 W limit).  The f32 rate
 # is that of uncontracted instructions: 132 SMs x 128 lanes x 1.98 GHz.
@@ -1623,6 +1633,7 @@ def run(dev):
     run_sequential(dev, card, phase_done, reset_counts, read_counts,
                    actions, env, level, tenv, tlevel, aenv, alevel, senv,
                    slevel, spawn)
+    run_play(dev, card, phase_done, reset_counts, read_counts)
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
@@ -1930,6 +1941,361 @@ def run_sequential(dev, card, phase_done, reset_counts, read_counts,
           "after one warm-up frame): " + ", ".join(
               f"{k[0]} N={k[1]} {v:.3f}" for k, v in times.items())
           + f" {card}")
+
+
+
+def sky_steps(a, b):
+    """Per pixel the largest difference of a channel between two planes
+    of packed RGBA8 words (torch tensors of one shape)."""
+    import torch
+    step = torch.zeros(a.shape, dtype=torch.int64)
+    for sh in (0, 8, 16, 24):
+        step = torch.maximum(step, (((a >> sh) & 255).long()
+                                    - ((b >> sh) & 255).long()).abs())
+    return step
+
+
+def run_play(dev, card, phase_done, reset_counts, read_counts):
+    """The game's play path on `dev` (torch code; `raster_sky` its one
+    kernel):
+
+      * load: the open-air night level of tests/torch_scenes.py (the
+        Cave-size level without its ceiling, under the night sky) saved
+        with save_level into build/play/ and loaded with load_level
+        through the native RON parser (built with g++ first); its parse
+        equals the Python parser's, and the two parse times are printed;
+      * play: GameToolState on the card, the player spawned, PLAY_FRAMES
+        ticks of scripted VirtualGamepad input through to_actions; then
+        render_game_view of the 4:3 640x480 view, a 16:9 view stretched
+        to 480 rows and the 320x240 view, each under the night sky in
+        RGB555 and in 8-bit, then one frame from the free-fly camera.
+        Each frame launches `raster_sky` once and no raster kernel, and
+        equals the CPU's from the same camera: face pixels and depth
+        exact, sky pixels within one 8-bit step.  The 8-bit views draw no
+        face (the 8-bit pipeline tests z < depth on the view's inverse-z
+        clear, as the JAX package's does): only the sky shows;
+      * 8-bit: render_level(use_rgb555=False) on a frame cleared to
+        F32_MAX at 320x240, N=1 and N=N_PLAY8 character cameras, on the
+        Cave-size and the asset level: no kernel launch; the first and
+        last instance equal the CPU's in colour and depth;
+      * exact sky: render_skybox(exact=True) under the night and the
+        sunset sky at 320x240, N=1 and N=N_SKY_EXACT, equal to the CPU's
+        (0 pixels), and at 160x120 equal to the numpy transcription
+        tests/golden/skybox_golden.py (0 pixels);
+      * ECS: combat_system, try_open_door, activate_checkpoint,
+        collect_item, integrate_velocities and global_positions on
+        N_ECS instances of ECS_CAPACITY random entities: every state
+        field and event lane equal to the CPU's.
+
+    Every time is CUDA events around the calls after a warm-up call,
+    printed with the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    import torch_scenes as ts
+    import torch_seq_cases as sc
+    from golden import skybox_golden as G
+    from bonnie32_tpu_torch import native
+    from bonnie32_tpu_torch.config import RasterSettings
+    from bonnie32_tpu_torch.game import collision as col
+    from bonnie32_tpu_torch.game import events as ev
+    from bonnie32_tpu_torch.game import runtime as rt
+    from bonnie32_tpu_torch.game import state as st
+    from bonnie32_tpu_torch.game import step as stp
+    from bonnie32_tpu_torch.game import systems as sy
+    from bonnie32_tpu_torch.game import viewport as vp
+    from bonnie32_tpu_torch.input import (InputState, VirtualGamepad,
+                                          VirtualKeyboard)
+    from bonnie32_tpu_torch.io import brotli_io, ron
+    from bonnie32_tpu_torch.models import build
+    from bonnie32_tpu_torch.models import level as L
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.models import skybox as S
+    from bonnie32_tpu_torch.ops import raster_ref
+    from bonnie32_tpu_torch.ops import skybox as sky_ops
+    from bonnie32_tpu_torch.types import CameraArrays
+
+    cpu = torch.device("cpu")
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    times = {}
+
+    def timed(label, fn, frames=1, want=None):
+        """fn() once untimed, then `frames` times between CUDA events:
+        the launches of the timed calls must be `want` (kernel name ->
+        count per call; every other kernel 0).  Returns the last
+        result."""
+        fn()
+        torch.cuda.synchronize()
+        reset_counts()
+        evs[0].record()
+        for _ in range(frames):
+            out = fn()
+        evs[1].record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        expect = {k: (want or {}).get(k, 0) * frames for k in counts}
+        if counts != expect:
+            _fail(f"{label}: launches {counts}, want {expect}")
+        times[label] = evs[0].elapsed_time(evs[1]) / frames
+        return out
+
+    def to_cpu(cams):
+        return CameraArrays(*(x.cpu() for x in cams))
+
+    # ---- load: save_level, then load_level through the native parser ----
+    t0 = time.perf_counter()
+    native.get()
+    build_s = time.perf_counter() - t0
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "play")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "open_air_night.ron")
+    L.save_level(ts.open_air_level(L, S), path)
+    with open(path, "rb") as f:
+        text = brotli_io.maybe_decompress(f.read())
+    parse = {}
+    for name, fn in (("native", ron.loads), ("Python", ron.loads_py)):
+        t0 = time.perf_counter()
+        for _ in range(5):
+            value = fn(text)
+        parse[name] = ((time.perf_counter() - t0) / 5 * 1e3, value)
+    if parse["native"][1] != parse["Python"][1]:
+        _fail("load: the native parse differs from the Python parse")
+    level = L.load_level(path)
+    if (ron.dumps(level.to_ron())
+            != ron.dumps(L.Level.from_ron(parse["Python"][1]).to_ron())):
+        _fail("load: load_level's level differs from the Python parse's")
+    print(f"load: {os.path.relpath(path)}, {len(text)} bytes of RON, "
+          f"{len(level.rooms)} room(s); "
+          f"native parser (g++ build {build_s:.2f} s) {parse['native'][0]:.3f}"
+          f" ms, Python parser {parse['Python'][0]:.3f} ms a parse "
+          f"(host clock) {card}")
+    phase_done("play: load through the native parser")
+
+    # ---- play: GameToolState, scripted input, render_game_view ----
+    tex = ts.textures()
+    scene_d = scene.compile_level(level, tex, ts.resolver, with_8bit=True,
+                                  device=dev)
+    scene_c = scene.compile_level(level, tex, ts.resolver, with_8bit=True,
+                                  device=cpu)
+    cfg = S.Skybox.from_ron(level.skybox)
+    sky_d = sky_ops.build_sky_tables(cfg, device=dev)
+    sky_c = sky_ops.build_sky_tables(cfg, device=cpu)
+    tool = rt.GameToolState(col.compile_collision(level, device=dev),
+                            col.player_params(level, device=dev),
+                            device=dev)
+    tool.spawn_player(ts.spawn_point(level))
+    tool.playing = True
+    kb, gp = VirtualKeyboard(), VirtualGamepad()
+    inp = InputState(kb, gp)
+    script = [dict(axes=dict(lx=0.0, ly=1.0, rx=0.4, ry=0.0),
+                   buttons={"b"}),
+              dict(axes=dict(lx=0.5, ly=0.8, rx=0.0, ry=-0.3),
+                   buttons={"b", "a"}),
+              dict(axes=dict(lx=-0.7, ly=0.2, rx=-0.6, ry=0.2),
+                   buttons=set())]
+    for f in range(PLAY_FRAMES):
+        gp.update(**script[f % len(script)])
+        tool.tick(inp)
+    if not all(bool(torch.isfinite(x).all()) for x in tool.state
+               if x.dtype.is_floating_point):
+        _fail("play: the state is not finite after the scripted ticks")
+    views = (("4:3 640x480", dict(low_resolution=False,
+                                  stretch_to_fill=False), (0, 0, 800, 600)),
+             ("16:9 stretched to 480 rows",
+              dict(low_resolution=False, stretch_to_fill=True),
+              (0, 0, 1280, 720)),
+             ("320x240", dict(low_resolution=True, stretch_to_fill=False),
+              (0, 0, 800, 600)))
+
+    def check_view(label, cams, settings, rect, faces_expected):
+        out = timed(label, lambda: vp.render_game_view(
+            scene_d, cams, settings, rect, sky=sky_d), frames=2,
+            want={"raster_sky": 1})
+        ref = vp.render_game_view(scene_c, to_cpu(cams), settings, rect,
+                                  sky=sky_c)
+        color, depth = out.fb.color.cpu(), out.fb.depth.cpu()
+        step = sky_steps(color, ref.fb.color)
+        faces = ref.fb.depth != 0.0
+        n_face = int(faces.sum())
+        print(f"play, {label}: {out.fb_size[0]}x{out.fb_size[1]} at "
+              f"{tuple(round(v, 1) for v in out.dest)}, card vs CPU: face "
+              f"pixels differing {int((step[faces] > 0).sum())} of "
+              f"{n_face}, depth differing "
+              f"{int((depth != ref.fb.depth).sum())}, sky pixels one step "
+              f"off {int((step[~faces] == 1).sum())}, beyond "
+              f"{int((step[~faces] > 1).sum())} of {int((~faces).sum())}")
+        if (out.fb_size != ref.fb_size or out.dest != ref.dest
+                or bool((step[faces] > 0).any())
+                or bool((depth != ref.fb.depth).any())
+                or bool((step[~faces] > 1).any())):
+            _fail(f"play, {label}: card and CPU differ")
+        if (n_face > 0) != faces_expected or not bool((~faces).any()):
+            _fail(f"play, {label}: {n_face} face pixels, "
+                  f"{int((~faces).sum())} sky pixels")
+
+    cams = tool.camera()
+    for label, kw, rect in views:
+        for pipe, rgb in (("RGB555", True), ("8-bit", False)):
+            check_view(f"{label}, {pipe}", cams,
+                       RasterSettings.game(use_rgb555=rgb, **kw), rect,
+                       faces_expected=rgb)
+    tool.toggle_camera_mode()
+    kb.update({"q"})
+    gp.update(axes=dict(lx=0.3, ly=0.8, rx=-0.2, ry=0.1), buttons=set())
+    tool.tick(inp)
+    if tool.camera_mode != rt.CameraMode.FREEFLY:
+        _fail("play: the camera did not switch to free-fly")
+    check_view("free-fly camera, 320x240, RGB555", tool.camera(),
+               RasterSettings.game(low_resolution=True,
+                                   stretch_to_fill=False),
+               (0, 0, 800, 600), faces_expected=True)
+    phase_done("play: GameToolState and render_game_view")
+
+    # ---- 8-bit: render_level(use_rgb555=False) on an F32_MAX clear ----
+    s8 = RasterSettings.game(use_rgb555=False)
+    for name in ("cave", "asset"):
+        lvl, ltex, kw, _ = sc.level_args(name)
+        sc_d = scene.compile_level(lvl, ltex, ts.resolver, with_8bit=True,
+                                   device=dev, **kw)
+        sc_c = scene.compile_level(lvl, ltex, ts.resolver, with_8bit=True,
+                                   device=cpu, **kw)
+        grid = col.compile_collision(lvl, device=dev)
+        params = col.player_params(lvl, device=dev)
+        for n in (1, N_PLAY8):
+            states = stp.tick(
+                st.spawn_player(st.new_state(n, 4, device=dev),
+                                ts.spawn_point(lvl),
+                                lvl.player_settings)[0],
+                grid, params, stp.Actions(**{
+                    k: torch.from_numpy(v).to(dev) for k, v in
+                    ts.actions_np(np.random.default_rng(SEED + 3),
+                                  n).items()}), 1.0 / 60.0)
+            cams = stp.character_camera(states, params)
+
+            def frame(sc_=sc_d, cams_=cams, n_=n, dev_=dev):
+                fb = raster_ref.new_framebuffer(HEIGHT, WIDTH, "harmonic",
+                                                n=n_, device=dev_)
+                return scene.render_level(fb, sc_, cams_, s8)
+
+            label = f"8-bit render_level, {name} level, N={n}"
+            out = timed(label, frame)
+            idx = sorted({0, n - 1})
+            sub = CameraArrays(cams.position[idx], cams.basis[idx])
+            ref = frame(sc_c, to_cpu(sub), len(idx), cpu)
+            diff = int((out.color[idx].cpu() != ref.color).sum())
+            ddiff = int((out.depth[idx].cpu() != ref.depth).sum())
+            lit = float(((ref.color >> 24) & 255 == 255).float().mean())
+            print(f"{label}: {WIDTH}x{HEIGHT}, instances {idx} card vs CPU "
+                  f"{diff} differing pixels, {ddiff} depth, lit {lit:.3f}")
+            if diff or ddiff or lit < 0.2:
+                _fail(f"{label}: {diff} pixels, {ddiff} depth, lit {lit}")
+    phase_done("play: the 8-bit pipeline")
+
+    # ---- the exact sky mesh walk ----
+    rng = np.random.default_rng(SEED + 4)
+    poses = [(float(rng.uniform(-0.4, 0.4)), float(rng.uniform(0, 6.28)))
+             for _ in range(N_SKY_EXACT)]
+    basis = torch.from_numpy(np.stack([build.camera_basis(p, y)
+                                       for p, y in poses]))
+    for sky_name in ("night", "sunset"):
+        cfg = ts.sky_config(S, sky_name)
+        t_d = sky_ops.build_sky_tables(cfg, device=dev)
+        t_c = sky_ops.build_sky_tables(cfg, device=cpu)
+        for n in (1, N_SKY_EXACT):
+            cams = CameraArrays(torch.zeros(n, 3), basis[:n])
+
+            def walk(tables, cams_, h=HEIGHT, w=WIDTH):
+                fb = raster_ref.new_framebuffer(
+                    h, w, "inv", n=cams_.position.shape[0],
+                    device=cams_.position.device)
+                return sky_ops.render_skybox(tables, cams_, h, w,
+                                             exact=True, fb=fb)
+
+            label = f"exact sky, {sky_name}, N={n}"
+            out = timed(label, lambda: walk(t_d, CameraArrays(
+                *(x.to(dev) for x in cams))))
+            ref = walk(t_c, cams)
+            diff = int((out.color.cpu() != ref.color).sum())
+            print(f"{label}: {WIDTH}x{HEIGHT}, card vs CPU {diff} differing "
+                  f"pixels")
+            if diff or bool(out.depth.any()):
+                _fail(f"{label}: {diff} pixels differ from the CPU")
+        gh, gw = 120, 160
+        cams = CameraArrays(torch.zeros(1, 3, device=dev),
+                            basis[:1].to(dev))
+        out = walk(t_d, cams, gh, gw).color[0].cpu().numpy()
+        gpix = np.zeros((gh, gw, 3), np.uint8)
+        G.render_skybox_scalar(
+            gpix, t_c.all_dirs.numpy(), t_c.all_colors.numpy(),
+            t_c.all_faces.numpy(), basis[0].numpy(),
+            star_spec=dict(dirs=t_c.star_dirs.numpy(),
+                           phase=t_c.star_phase.numpy(),
+                           color=t_c.star_color.numpy(),
+                           size=t_c.star_size, twinkle=t_c.star_twinkle,
+                           enabled=t_c.stars_enabled), time=t_c.time)
+        ours = np.stack([(out >> sh) & 255 for sh in (0, 8, 16)], -1)
+        gdiff = int((ours != gpix).any(-1).sum())
+        print(f"exact sky, {sky_name}: {gw}x{gh}, card vs the numpy "
+              f"golden {gdiff} differing pixels")
+        if gdiff:
+            _fail(f"exact sky, {sky_name}: {gdiff} pixels differ from "
+                  f"skybox_golden")
+    phase_done("play: the exact sky")
+
+    # ---- ECS systems at N_ECS instances ----
+    def populate(device):
+        r = np.random.default_rng(SEED + 5)
+
+        def pos(spread=2.0):
+            return torch.from_numpy(r.uniform(
+                -spread, spread, (N_ECS, 3)).astype(np.float32)).to(device)
+
+        s = st.new_state(N_ECS, ECS_CAPACITY, device=device)
+        s, player = st.spawn(s, st.KIND_PLAYER, pos(), hp=20,
+                             team=st.TEAM_PLAYER, hurtbox_radius=1.0)
+        s, enemy = st.spawn_enemy(s, pos(), hp=12)
+        for team in (st.TEAM_ENEMY, st.TEAM_PLAYER, st.TEAM_NEUTRAL):
+            s, _ = st.spawn_projectile(s, pos(), pos(5.0), 4, enemy,
+                                       team=team)
+        s, door = st.spawn_door(s, pos(), required_key=3)
+        s, cp = st.spawn_checkpoint(s, pos())
+        s, item = st.spawn(s, st.KIND_ITEM, pos(), item_amount=7)
+        s, key = st.spawn(s, st.KIND_KEY, pos(), key_type=3)
+        keys = torch.from_numpy(r.integers(-1, 5, (N_ECS, 4)).astype(
+            np.int32)).to(device)
+        return s, (player, door, cp, item, key, keys)
+
+    def systems(device):
+        s, (player, door, cp, item, key, keys) = populate(device)
+        e = ev.new_events(N_ECS, 8, device=device)
+        s, e = sy.combat_system(s, e, 1.0 / 60.0)
+        s, opened, e = sy.try_open_door(s, door, player, keys, e)
+        s, e = sy.activate_checkpoint(s, cp, player, e)
+        s, e = sy.collect_item(s, item, player, e)
+        s, e = sy.collect_item(s, key, player, e)
+        s = sy.integrate_velocities(s, 1.0 / 60.0)
+        return s, e, opened, sy.global_positions(s)
+
+    out = timed(f"ECS systems, N={N_ECS}", lambda: systems(dev))
+    ref = systems(cpu)
+
+    def leaves(tree):
+        if isinstance(tree, torch.Tensor):
+            return [tree]
+        return [x for t in tree for x in leaves(t)]
+
+    got, want = leaves(out), leaves(ref)
+    bad = sum(int((a.cpu() != b).sum()) for a, b in zip(got, want))
+    hits = int(ref[1].damage.count.sum())
+    print(f"ECS systems: N={N_ECS}, {ECS_CAPACITY} slots, card vs CPU "
+          f"{bad} differing values in {len(got)} fields; damage events "
+          f"{hits}, doors opened {int(ref[2].sum())}")
+    if bad or len(got) != len(want) or hits == 0:
+        _fail(f"ECS systems: {bad} values differ, {hits} damage events")
+    phase_done("play: ECS systems")
+    print("play path, ms a call (CUDA events, after one warm-up call): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" {card}")
 
 
 if __name__ == "__main__":

@@ -28,7 +28,10 @@ modes, render_level through the rollout's sequential route, with ortho
 projection, the editor's settings over five draw groups and transparent
 faces in the first of two rooms) equals the CPU on every pixel and
 launches no raster kernel; on the game settings it equals the kernel
-route on the card.
+route on the card.  The play path: the 8-bit pipeline on an F32_MAX
+clear, the exact sky mesh walk (also against the numpy golden) and one
+render_game_view (one `raster_sky` launch, the sky within one step)
+equal the CPU.
 """
 
 import numpy as np
@@ -808,3 +811,128 @@ def test_flat_centroids_match_cpu(env):
     cpu = scene_flat.build_surfaces_flat(
         cpu_env.flat, CameraArrays(*(x.cpu() for x in cams)), settings, W, H)
     assert torch.equal(card.centroid_z.cpu(), cpu.centroid_z)
+
+
+@pytest.mark.parametrize("name", ["cave", "asset"])
+def test_render_level8_matches_cpu(env, name):
+    """The 8-bit pipeline (render_level with use_rgb555=False) on a frame
+    cleared to F32_MAX, on the card, equals the CPU's in colour and depth
+    and launches no raster kernel."""
+    from bonnie32_tpu_torch.game import collision as col
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.ops import raster_ref
+    _, dev, _ = env
+    level, tex, kw, _ = sc.level_args(name)
+    grid = col.compile_collision(level, device=dev)
+    params = col.player_params(level, device=dev)
+    states = stp.tick(rollout.initial_states(level, ts.spawn_point(level),
+                                             N, device=dev),
+                      grid, params, _actions(np.random.default_rng(8), dev),
+                      1.0 / 60.0)
+    cams = stp.character_camera(states, params)
+    s8 = RasterSettings.game(use_rgb555=False)
+    out = {}
+    for device, c in ((dev, cams), ("cpu", CameraArrays(*(x.cpu()
+                                                          for x in cams)))):
+        compiled = scene.compile_level(level, tex, ts.resolver,
+                                       with_8bit=True, device=device, **kw)
+        fb = raster_ref.new_framebuffer(H, W, "harmonic", n=N, device=device)
+        before = _kernel_counts()
+        out[str(device)] = scene.render_level(fb, compiled, c, s8)
+        torch.cuda.synchronize()
+        assert _kernel_counts() == before
+    card, cpu = out[str(dev)], out["cpu"]
+    assert bool(((cpu.color >> 24) & 255 == 255).any())
+    assert torch.equal(card.color.cpu(), cpu.color)
+    assert torch.equal(card.depth.cpu(), cpu.depth)
+
+
+@pytest.mark.parametrize("sky", ["night", "sunset"])
+def test_exact_sky_matches_cpu_and_golden(env, sky):
+    """render_skybox(exact=True) on the card equals the CPU's (0 pixels)
+    at 320x240 and the numpy golden (tests/golden/skybox_golden.py) at
+    160x120."""
+    from golden import skybox_golden as G
+    from bonnie32_tpu_torch.ops import raster_ref
+    _, dev, _ = env
+    poses = [(0.15, 0.9), (-0.3, 2.2), (0.35, 4.4)]
+    basis = torch.from_numpy(np.stack([build.camera_basis(p, y)
+                                       for p, y in poses]))
+    cfg = ts.sky_config(S, sky)
+
+    def walk(device, h, w, n):
+        tables = sky_ops.build_sky_tables(cfg, device=device)
+        cams = CameraArrays(torch.zeros(n, 3, device=device),
+                            basis[:n].to(device))
+        fb = raster_ref.new_framebuffer(h, w, "inv", n=n, device=device)
+        return tables, sky_ops.render_skybox(tables, cams, h, w, exact=True,
+                                             fb=fb)
+
+    _, card = walk(dev, H, W, len(poses))
+    _, cpu = walk("cpu", H, W, len(poses))
+    assert torch.equal(card.color.cpu(), cpu.color)
+    tables, small = walk(dev, 120, 160, 1)
+    gpix = np.zeros((120, 160, 3), np.uint8)
+    G.render_skybox_scalar(
+        gpix, tables.all_dirs.cpu().numpy(), tables.all_colors.cpu().numpy(),
+        tables.all_faces.cpu().numpy(), basis[0].numpy(),
+        star_spec=dict(dirs=tables.star_dirs.cpu().numpy(),
+                       phase=tables.star_phase.cpu().numpy(),
+                       color=tables.star_color.cpu().numpy(),
+                       size=tables.star_size, twinkle=tables.star_twinkle,
+                       enabled=tables.stars_enabled), time=tables.time)
+    word = small.color[0].cpu().numpy()
+    ours = np.stack([(word >> sh) & 255 for sh in (0, 8, 16)], -1)
+    assert int((ours != gpix).any(-1).sum()) == 0
+
+
+def test_render_game_view_matches_cpu(env):
+    """One 320x240 game view of the open-air night level from a
+    GameToolState on the card after scripted input: one `raster_sky`
+    launch; face pixels and depth equal the CPU's, sky pixels within one
+    8-bit step."""
+    from bonnie32_tpu_torch.game import collision as col
+    from bonnie32_tpu_torch.game import runtime as rt
+    from bonnie32_tpu_torch.game import viewport as vp
+    from bonnie32_tpu_torch.input import InputState, VirtualGamepad
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.ops import _cuda
+    _, dev, _ = env
+    level = ts.open_air_level(L, S)
+    tool = rt.GameToolState(col.compile_collision(level, device=dev),
+                            col.player_params(level, device=dev),
+                            device=dev)
+    tool.spawn_player(ts.spawn_point(level))
+    tool.playing = True
+    gp = VirtualGamepad()
+    inp = InputState(gamepad=gp)
+    for _ in range(3):
+        gp.update(axes=dict(lx=0.2, ly=1.0, rx=0.4, ry=0.0), buttons={"b"})
+        tool.tick(inp)
+    cams = tool.camera()
+    settings = RasterSettings.game(low_resolution=True,
+                                   stretch_to_fill=False)
+    cfg = S.Skybox.from_ron(level.skybox)
+    out = {}
+    for device, c in ((dev, cams), ("cpu", CameraArrays(*(x.cpu()
+                                                          for x in cams)))):
+        compiled = scene.compile_level(level, ts.textures(), ts.resolver,
+                                       with_8bit=True, device=device)
+        sky = sky_ops.build_sky_tables(cfg, device=device)
+        before = _cuda.raster_sky.launches
+        out[str(device)] = vp.render_game_view(compiled, c, settings,
+                                               (0, 0, 800, 600), sky=sky)
+        torch.cuda.synchronize()
+        assert _cuda.raster_sky.launches - before == (
+            1 if str(device) != "cpu" else 0)
+    card, cpu = out[str(dev)].fb, out["cpu"].fb
+    assert card.color.shape == (1, 240, 320)
+    step = torch.zeros(cpu.color.shape, dtype=torch.int64)
+    for sh in (0, 8, 16, 24):
+        step = torch.maximum(step, (((card.color.cpu() >> sh) & 255).long()
+                                    - ((cpu.color >> sh) & 255).long()).abs())
+    faces = cpu.depth != 0
+    assert bool(faces.any()) and bool((~faces).any())
+    assert not bool((step[faces] > 0).any())
+    assert not bool((step[~faces] > 1).any())
+    assert torch.equal(card.depth.cpu(), cpu.depth)

@@ -34,7 +34,8 @@ def test_no_source_imports_jax():
 
 
 JAX_PKG = REPO / "bonnie32_tpu"
-SOURCES = sorted([p for p in PKG.rglob("*") if p.suffix in (".py", ".cu")]
+SOURCES = sorted([p for p in PKG.rglob("*")
+                  if p.suffix in (".py", ".cu", ".cpp")]
                  + [REPO / "chip_smoke.py"])
 
 
@@ -52,6 +53,28 @@ def test_import_runs_no_file_of_the_jax_package():
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_native_parser_is_the_ports_own():
+    """Parsing RON through the port (its native parser, built at first
+    use) in a fresh interpreter loads the port's own `_b32native_torch`
+    from build/native/, and no `_b32native` built from the JAX package's
+    native/ directory."""
+    code = (f"import sys; sys.path[:0] = [{str(REPO)!r}]\n"
+            "from bonnie32_tpu_torch.io import ron\n"
+            "from bonnie32_tpu_torch import native\n"
+            "assert ron.loads('(a: Foo(1))')['a'].name == 'Foo'\n"
+            "assert '_b32native' not in sys.modules\n"
+            "mod = sys.modules[native.NAME]\n"
+            "assert mod.__file__ == str(native.library_path())\n"
+            f"assert not mod.__file__.startswith({str(JAX_PKG) + '/'!r})\n"
+            "files = [getattr(m, '__file__', None) or ''\n"
+            "         for m in list(sys.modules.values())]\n"
+            f"assert not [f for f in files if 'b32native' in f and "
+            f"f.startswith({str(JAX_PKG) + '/'!r})]\n")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
 
 

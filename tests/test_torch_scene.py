@@ -26,8 +26,11 @@ from bonnie32_tpu_torch import interop
 from bonnie32_tpu_torch import rollout as trollout
 from bonnie32_tpu_torch.models import level as TL
 from bonnie32_tpu_torch.game import collision as tcol
+from bonnie32_tpu_torch.models import scene as tscene
 from bonnie32_tpu_torch.models import scene_flat as tsf
 from bonnie32_tpu_torch.ops import raster_batch as trb
+from bonnie32_tpu_torch.ops import raster_ref as traster_ref
+from bonnie32_tpu_torch.ops import skybox as tsky
 from bonnie32_tpu_torch.types import Surfaces
 
 H, W = 48, 64
@@ -248,15 +251,13 @@ def test_keyable_faces_are_kept(surfaces_and_prep, scenes):
 
 @pytest.mark.parametrize("variant", [
     "ortho", "transparent_not_last", "transparent_perspective_not_last",
-    "backface_wires_two_groups", "non_flat", "skybox"])
+    "backface_wires_two_groups"])
 def test_unported_configurations_raise(scenes, variant):
     """What the kernel route cannot draw raises when render_level_flat is
     called directly (rollout.step_and_render sends it to the sequential
     renderer): ortho projection, transparent faces outside the last draw
     group (also with perspective UVs), backface wires over several draw
-    groups.  What is still unported raises too: the non-flat env builds,
-    but its 8-bit pipeline (use_rgb555=False) raises; so does the exact
-    sky mesh."""
+    groups."""
     from bonnie32_tpu_torch.config import OrthoProjection
     tlevel, tflat, tstatic = scenes[1], scenes[4], scenes[5]
     game = RasterSettings.game()
@@ -281,24 +282,14 @@ def test_unported_configurations_raise(scenes, variant):
         np.zeros(3, np.float32), jbuild.camera_basis(0.2, 0.3))))
     cams = type(cams)(*(x[None] for x in cams))
     with pytest.raises(NotImplementedError):
-        if variant == "non_flat":
-            env = trollout.build_env(tlevel, ts.textures(), ts.resolver,
-                                     flat=False, device="cpu")
-            assert env.flat is None and env.scene is not None
-            trollout.render_cameras(env, cams, dataclasses.replace(
-                game, use_rgb555=False), H, W)
-        elif variant == "skybox":
-            # a level with a skybox builds; of the sky only the
-            # triangle-by-triangle mesh walk is still unported
-            from bonnie32_tpu_torch.ops import skybox as tsky
-            sky_level = ts.cave_size_level(TL)
-            sky_level.skybox = {"enabled": True}
-            env = trollout.build_env(sky_level, ts.textures(), ts.resolver,
-                                     device="cpu")
-            assert env.sky is not None
-            tsky.render_skybox(env.sky, cams, H, W, exact=True)
-        else:
-            tsf.render_level_flat(tflat, static, cams, settings, H, W)
+        tsf.render_level_flat(tflat, static, cams, settings, H, W)
+
+
+def sky_cave_level(L):
+    """The Cave-size level with a default skybox config."""
+    level = ts.cave_size_level(L)
+    level.skybox = {"enabled": True}
+    return level
 
 
 # The configurations that raised before the port drew them: variant ->
@@ -306,8 +297,16 @@ def test_unported_configurations_raise(scenes, variant):
 # rendered on the CPU and held against the JAX package — its kernel path
 # (interpret mode; transparent faces through its sequential compositor
 # under perspective UVs), or for x-ray with perspective UVs, which its
-# kernel path refuses, its sequential renderer.
+# kernel path refuses, its sequential renderer.  Two draw through the
+# sequential renderer's own modules: "non_flat", the 8-bit pipeline
+# (compile_level(with_8bit=True), render_level with use_rgb555=False, on
+# a frame cleared to F32_MAX), and "skybox", the level's sky as the exact
+# mesh walk (render_skybox(exact=True)).
+SEQUENTIAL = ("non_flat", "skybox")
 PORTED = {
+    "non_flat": (ts.cave_size_level, ts.textures, "cave",
+                 dict(use_rgb555=False)),
+    "skybox": (sky_cave_level, ts.textures, "cave", {}),
     "perspective_uv": (ts.cave_size_level, ts.textures, "cave",
                        dict(affine_textures=False)),
     "transparent_perspective_uv": (ts.transparent_cave_level,
@@ -337,6 +336,23 @@ def ported_refs():
                                    jbuild.camera_basis(pi, ya))
                 for p, pi, ya in POSES[key]]
         cams = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *cams)
+        if variant == "non_flat":
+            seq = jscene.compile_level(level, textures(), ts.resolver,
+                                       with_8bit=True)
+            fbh = raster_ref.new_framebuffer(H, W, depth_mode="harmonic")
+            color = jax.vmap(lambda c: jscene.render_level(
+                fbh, seq, c, settings).color)(cams)
+            out[variant] = (_np(cams), np.asarray(color))
+            continue
+        if variant == "skybox":
+            from bonnie32_tpu.models import skybox as jskybox
+            from bonnie32_tpu.ops import skybox as jsky
+            tables = jsky.build_sky_tables(
+                jskybox.Skybox.from_ron(level.skybox))
+            color = jax.vmap(lambda c: jsky.render_skybox(
+                fb0, tables, c, exact=True).color)(cams)
+            out[variant] = (_np(cams), np.asarray(color))
+            continue
         jflat, jstatic = jsf.compile_level_flat(level, textures(),
                                                 ts.resolver)
         if jsf.kernel_path_ok(jstatic, settings):
@@ -355,23 +371,51 @@ def ported_refs():
     return out
 
 
+def _port_sequential(variant, level, textures, cams, settings):
+    """The port's frames of a SEQUENTIAL variant on the CPU."""
+    n = cams.position.shape[0]
+    if variant == "non_flat":
+        scene = tscene.compile_level(level, textures, ts.resolver,
+                                     with_8bit=True, device="cpu")
+        fb = traster_ref.new_framebuffer(H, W, depth_mode="harmonic", n=n,
+                                         device="cpu")
+        return tscene.render_level(fb, scene, cams, settings)
+    env = trollout.build_env(level, textures, ts.resolver, device="cpu")
+    fb = traster_ref.new_framebuffer(H, W, depth_mode="inv", n=n,
+                                     device="cpu")
+    return tsky.render_skybox(env.sky, cams, H, W, exact=True, fb=fb)
+
+
 @pytest.mark.parametrize("variant", sorted(PORTED))
 def test_ported_configurations_match_jax(ported_refs, variant):
     """Perspective UVs (opaque, transparent, x-ray), the wireframe overlay
-    on two draw groups and backface wires on one: the port's CPU render
-    within the seam budget max(64*N, pixels/500) of the JAX package's
-    (XLA:CPU contracts FMAs; the overlay alone is exact)."""
+    on two draw groups, backface wires on one and the 8-bit pipeline: the
+    port's CPU render within the seam budget max(64*N, pixels/500) of the
+    JAX package's (XLA:CPU contracts FMAs; the overlay alone is exact).
+    The exact sky mesh within tests/test_skybox.py's budget: one step a
+    channel on under 5% of the pixels."""
     build, textures, _, kw = PORTED[variant]
-    flat, static = tsf.compile_level_flat(build(TL), textures(), ts.resolver,
-                                          device="cpu")
     settings = dataclasses.replace(RasterSettings.game(), **kw)
     cams, jcolor = ported_refs[variant]
-    out = tsf.render_level_flat(flat, static, interop.camera_arrays(cams),
-                                settings, H, W)
+    tcams = interop.camera_arrays(cams)
+    if variant in SEQUENTIAL:
+        out = _port_sequential(variant, build(TL), textures(), tcams,
+                               settings)
+    else:
+        flat, static = tsf.compile_level_flat(build(TL), textures(),
+                                              ts.resolver, device="cpu")
+        out = tsf.render_level_flat(flat, static, tcams, settings, H, W)
     diff = int((out.color.numpy() != jcolor).sum())
     if variant == "wire_overlay":
         assert static.n_draw_groups == 2 and diff == 0
         assert bool(out.color.any())
+    elif variant == "skybox":
+        step = np.zeros(jcolor.shape, np.int64)
+        for sh in (0, 8, 16):
+            step = np.maximum(step, np.abs(
+                ((out.color.numpy() >> sh) & 255).astype(np.int64)
+                - ((jcolor >> sh) & 255)))
+        assert step.max() <= 1 and (step > 0).mean() < 0.05
     else:
         assert ((jcolor >> 24) & 255 == 255).mean() > 0.5
         assert diff <= max(64 * jcolor.shape[0], jcolor.size // 500), diff

@@ -26,7 +26,10 @@ cameras and directions from a numpy seed.  Tolerances:
     product and the port's left-to-right sum differ by 1e-4 of it, and
     the projection divides by it; the basis row, the time and the empty
     boxes of invalid faces exact;
-  * stars: equal planes.
+  * stars: equal planes;
+  * the exact mesh walk (render_skybox(exact=True)): one step on under
+    5% of the pixels, tests/test_skybox.py's budget for it
+    (test_torch_skybox_exact.py holds it against the numpy golden).
 """
 
 import dataclasses
@@ -47,6 +50,7 @@ from bonnie32_tpu.ops import raster_ref
 from bonnie32_tpu.ops import skybox as jsky
 from bonnie32_tpu_torch import interop
 from bonnie32_tpu_torch.models import skybox as TS
+from bonnie32_tpu_torch.ops import raster_ref as raster_ref_t
 from bonnie32_tpu_torch.ops import skybox as tsky
 
 torch.set_num_threads(1)
@@ -89,6 +93,9 @@ def refs():
         out[name, "tables"] = _np(tables)
         out[name, "render"] = np.stack([np.asarray(jsky.render_skybox(
             fb, tables, c, time=0.25).color) for c in cams])
+        if name == "night":
+            out[name, "exact"] = np.stack([np.asarray(jsky.render_skybox(
+                fb, tables, c, time=0.25, exact=True).color) for c in cams])
         out[name, "scal"] = np.stack([np.asarray(jsky.prep_sky_scal(
             tables, c, W, H)) for c in cams])
         if name == "night":
@@ -260,10 +267,23 @@ def test_render_skybox_matches_host_sampler():
     assert (err == 0).mean() > 0.97
 
 
-def test_render_skybox_exact_is_not_ported():
-    cams = interop.camera_arrays(_np(_jax_cams()[1]))
-    with pytest.raises(NotImplementedError, match="exact"):
-        tsky.render_skybox(_port_tables("night"), cams, H, W, exact=True)
+def test_render_skybox_exact_matches_jax(refs):
+    """The mesh walk (exact=True) of the night sky, from the JAX package's
+    own tables carried across, for every camera at time 0.25 (the stars
+    twinkle): within tests/test_skybox.py's budget for it, one step a
+    channel on under 5% of the pixels; depth cleared."""
+    cams = interop.camera_arrays(refs["cams"])
+    tables = interop.sky_tables(refs["night", "tables"],
+                                ts.sky_config(TS, "night"))
+    fb = raster_ref_t.new_framebuffer(H, W, depth_mode="inv", n=len(POSES),
+                                      device="cpu")
+    out = tsky.render_skybox(tables, cams, H, W, time=0.25, exact=True,
+                             fb=fb)
+    step = np.abs(_channels(out.color.numpy())
+                  - _channels(refs["night", "exact"])).max(-1)
+    assert step.max() <= 1, f"{(step > 1).sum()} pixels beyond one step"
+    assert (step > 0).mean() < 0.05, f"{(step > 0).mean():.1%} differ"
+    assert not bool(out.depth.any())
 
 
 @pytest.mark.parametrize("name", SKIES)
