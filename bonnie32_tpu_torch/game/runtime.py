@@ -197,12 +197,10 @@ class GameToolState:
     (default: the card)."""
 
     def __init__(self, grid: CollisionGrid, params: PlayerParams,
-                 settings: Optional[RasterSettings] = None,
                  capacity: int = 64, device=None):
         self.device = resolve_device(device)
         self.grid = grid
         self.params = params
-        self.settings = settings or RasterSettings.game()
         self.state = st.new_state(1, capacity, device=self.device)
         self.playing = False
         self.camera_mode = CameraMode.CHARACTER
@@ -212,11 +210,6 @@ class GameToolState:
         self.orbit_distance = 3000.0
         self.orbit_azimuth = 0.8
         self.orbit_elevation = 0.3
-        self.fps_limit = FpsLimit.FPS60
-        self.options_menu_open = False
-        self.show_debug_overlay = False
-        self.debug_menu_selection = 0   # renderer.rs debug menu cursor
-        self.camera_initialized = False
 
     def spawn_player(self, pos, hp: int = 100) -> int:
         self.state, e = st.spawn_player(self.state, pos, self.params, hp=hp)

@@ -225,14 +225,12 @@ class _Parser:
         return out
 
 
-def loads(text, native: bool = True) -> Any:
-    """Parse RON text: with the C++ parser of native/b32native.cpp (built
-    at first use; a failed build raises), or with `native=False` the
-    pure-Python parser `loads_py`, the reference implementation."""
-    if native:
-        from .. import native as _native
-        return _native.get().ron_loads(text)
-    return loads_py(text)
+def loads(text) -> Any:
+    """Parse RON text with the C++ parser of native/b32native.cpp (built
+    at first use; a failed build raises).  `loads_py` is the pure-Python
+    parser, the reference implementation."""
+    from .. import native as _native
+    return _native.get().ron_loads(text)
 
 
 def loads_py(text) -> Any:

@@ -218,6 +218,17 @@ def main():
     run(torch.device("cuda", 0))
 
 
+def channel_step(a, b):
+    """Per pixel the largest difference of a channel between two planes
+    of packed RGBA8 words (torch tensors of one shape, on one device)."""
+    import torch
+    step = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
+    for sh in (0, 8, 16, 24):
+        step = torch.maximum(step, (((a >> sh) & 255).long()
+                                    - ((b >> sh) & 255).long()).abs())
+    return step
+
+
 def run(dev):
     """All phases on `dev`, the card (a CPU rehearsal passes the CPU with
     the CUDA entry points and events substituted)."""
@@ -424,14 +435,6 @@ def run(dev):
         if sky is None:
             return color, None
         return color, dict(face=face, mtn=mtn, stars=stars, blended=blended)
-
-    def channel_step(a, b):
-        """Largest per-channel difference of two packed RGBA8 planes."""
-        out = torch.zeros(a.shape, dtype=torch.int64, device=a.device)
-        for sh in (0, 8, 16, 24):
-            out = torch.maximum(out, (((a >> sh) & 255).long()
-                                      - ((b >> sh) & 255).long()).abs())
-        return out
 
     def sky_classes(label, kern, plain, cls, blend_limit):
         """Hold a frame over a sky against its plain version by pixel
@@ -1921,11 +1924,7 @@ def run_sequential(dev, card, phase_done, reset_counts, read_counts,
     card_f = rollout.render_cameras(sseq, sub, game, HEIGHT, WIDTH)
     cpu_f = rollout.render_cameras(cenv, CameraArrays(
         *(x.cpu() for x in sub)), game, HEIGHT, WIDTH)
-    step = torch.zeros(cpu_f.color.shape, dtype=torch.int64)
-    for sh in (0, 8, 16, 24):
-        step = torch.maximum(step, (((card_f.color.cpu() >> sh) & 255).long()
-                                    - ((cpu_f.color >> sh) & 255).long()
-                                    ).abs())
+    step = channel_step(card_f.color.cpu(), cpu_f.color)
     sky = cpu_f.depth == 0.0
     print(f"sequential route, {label}: {sub.position.shape[0]} cameras, "
           f"card vs CPU: face pixels differing "
@@ -1942,17 +1941,6 @@ def run_sequential(dev, card, phase_done, reset_counts, read_counts,
               f"{k[0]} N={k[1]} {v:.3f}" for k, v in times.items())
           + f" {card}")
 
-
-
-def sky_steps(a, b):
-    """Per pixel the largest difference of a channel between two planes
-    of packed RGBA8 words (torch tensors of one shape)."""
-    import torch
-    step = torch.zeros(a.shape, dtype=torch.int64)
-    for sh in (0, 8, 16, 24):
-        step = torch.maximum(step, (((a >> sh) & 255).long()
-                                    - ((b >> sh) & 255).long()).abs())
-    return step
 
 
 def run_play(dev, card, phase_done, reset_counts, read_counts):
@@ -2115,7 +2103,7 @@ def run_play(dev, card, phase_done, reset_counts, read_counts):
         ref = vp.render_game_view(scene_c, to_cpu(cams), settings, rect,
                                   sky=sky_c)
         color, depth = out.fb.color.cpu(), out.fb.depth.cpu()
-        step = sky_steps(color, ref.fb.color)
+        step = channel_step(color, ref.fb.color)
         faces = ref.fb.depth != 0.0
         n_face = int(faces.sum())
         print(f"play, {label}: {out.fb_size[0]}x{out.fb_size[1]} at "
@@ -2152,6 +2140,29 @@ def run_play(dev, card, phase_done, reset_counts, read_counts):
                (0, 0, 800, 600), faces_expected=True)
     phase_done("play: GameToolState and render_game_view")
 
+    def valid_counts8(sc_, cams, settings):
+        """(meshes, I) valid surfaces that render_level's 8-bit branch
+        builds for each room and asset mesh of `sc_`, on the host."""
+        from bonnie32_tpu_torch.ops.surface import build_surfaces
+        from bonnie32_tpu_torch.types import no_fog
+        fog0 = no_fog(device=cams.position.device)
+
+        def room_faces(i):
+            f = scene._index(sc_.faces, i)
+            tid = f.tex_id
+            return f._replace(tex_id=torch.where(
+                tid >= 0, sc_.tex_map[i][torch.clamp(tid, min=0).long()],
+                tid))
+
+        meshes = [(scene._index(sc_.mesh, i), room_faces(i), sc_.atlas8,
+                   sc_.ambient[i]) for i in range(sc_.ambient.shape[0])]
+        meshes += [(scene._index(sc_.a_mesh, i), scene._index(sc_.a_faces, i),
+                    scene._index(sc_.a_atlas8, i), sc_.a_ambient[i])
+                   for i in range(sc_.a_count)]
+        return torch.stack([build_surfaces(
+            m, f, a, cams, sc_.lights._replace(ambient=amb), fog0, settings,
+            WIDTH, HEIGHT).valid.sum(1).cpu() for m, f, a, amb in meshes])
+
     # ---- 8-bit: render_level(use_rgb555=False) on an F32_MAX clear ----
     s8 = RasterSettings.game(use_rgb555=False)
     for name in ("cave", "asset"):
@@ -2180,13 +2191,20 @@ def run_play(dev, card, phase_done, reset_counts, read_counts):
 
             label = f"8-bit render_level, {name} level, N={n}"
             out = timed(label, frame)
-            idx = sorted({0, n - 1})
+            # render_mesh8 loops to the most valid surfaces of any
+            # instance and masks the rest: check the instances at each
+            # mesh's extremes as well as the first and the last
+            valid = valid_counts8(sc_d, cams, s8)
+            idx = sorted({0, n - 1, *valid.argmin(1).tolist(),
+                          *valid.argmax(1).tolist()})
             sub = CameraArrays(cams.position[idx], cams.basis[idx])
             ref = frame(sc_c, to_cpu(sub), len(idx), cpu)
             diff = int((out.color[idx].cpu() != ref.color).sum())
             ddiff = int((out.depth[idx].cpu() != ref.depth).sum())
             lit = float(((ref.color >> 24) & 255 == 255).float().mean())
-            print(f"{label}: {WIDTH}x{HEIGHT}, instances {idx} card vs CPU "
+            print(f"{label}: {WIDTH}x{HEIGHT}, valid surfaces per "
+                  f"instance {int(valid.sum(0).min())}-"
+                  f"{int(valid.sum(0).max())}, instances {idx} card vs CPU "
                   f"{diff} differing pixels, {ddiff} depth, lit {lit:.3f}")
             if diff or ddiff or lit < 0.2:
                 _fail(f"{label}: {diff} pixels, {ddiff} depth, lit {lit}")

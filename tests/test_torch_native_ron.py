@@ -79,7 +79,7 @@ def test_default_loads_uses_native(monkeypatch):
     v = ron.loads("(speed: 5000.0)")
     assert v == {"speed": 5000.0}
     monkeypatch.undo()
-    assert ron.loads("(speed: 5000.0)", native=False) == v
+    assert ron.loads_py("(speed: 5000.0)") == v
     # the port's Tag class is the module's enum-variant factory
     assert type(ron.loads("Foo(1)")) is ron.Tag
 
