@@ -13,6 +13,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.fixed import sqrt_rn
 from ..types import CameraArrays
 from .collision import CollisionGrid, PlayerParams, move_and_slide
 from .state import GameState
@@ -40,7 +41,7 @@ def _player_input(state: GameState, params: PlayerParams, actions: Actions,
     mx, my = actions.move_x, actions.move_y
     cx, cy = actions.cam_x, actions.cam_y
     zero = torch.zeros_like(mx)
-    stick = torch.sqrt(cx * cx + cy * cy) > 0.0
+    stick = sqrt_rn(cx * cx + cy * cy) > 0.0
     yaw = state.char_cam_yaw - torch.where(
         stick, cx * LOOK_SENSITIVITY * dt, zero)
     pitch = torch.clamp(
@@ -54,10 +55,10 @@ def _player_input(state: GameState, params: PlayerParams, actions: Actions,
 
     # camera-relative movement (renderer.rs:345-398)
     sy, cyw = torch.sin(yaw), torch.cos(yaw)
-    use = torch.sqrt(mx * mx + my * my) > 0.1
+    use = sqrt_rn(mx * mx + my * my) > 0.1
     mv0 = torch.where(use, sy * my + cyw * (-mx), zero)
     mv1 = torch.where(use, cyw * my + (-sy) * (-mx), zero)
-    mv_len = torch.sqrt(mv0 * mv0 + mv1 * mv1)
+    mv_len = sqrt_rn(mv0 * mv0 + mv1 * mv1)
     moving = mv_len > 0.1
     sprinting = actions.sprint & moving
     safe_len = torch.where(mv_len == 0, torch.ones_like(mv_len), mv_len)
@@ -135,7 +136,7 @@ def _cross(a, b):
 
 
 def _norm(v):
-    return torch.sqrt((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
+    return sqrt_rn((v[..., 0] * v[..., 0] + v[..., 1] * v[..., 1])
                       + v[..., 2] * v[..., 2])
 
 

@@ -145,6 +145,14 @@ def dither_and_quantize8(v8: torch.Tensor, offset: torch.Tensor
     return torch.clamp((v8 + offset) >> 3, 0, 31)
 
 
+def pack_rgb(rgb) -> int:
+    """An (r, g, b) colour of 8-bit ints as the opaque RGBA8 word, an
+    int32 value (the wrap of `pack_rgba8(r, g, b, 255)`)."""
+    r, g, b = rgb
+    word = r | (g << 8) | (b << 16) | (255 << 24)
+    return word - (1 << 32) if word >= (1 << 31) else word  # i32 wrap
+
+
 def pack_rgba8(r, g, b, a) -> torch.Tensor:
     """r | g<<8 | b<<16 | a<<24 as int32 (a=255 wraps to a negative word,
     like the JAX package's int32 packing)."""

@@ -28,6 +28,17 @@ def f32_to_i32(x: torch.Tensor) -> torch.Tensor:
                        torch.full_like(i, 2147483647), i)
 
 
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded f32 square root on every device.  The card's
+    `torch.sqrt` is, and runs as it is; torch's vectorized CPU sqrt
+    (AVX512) is not: about 0.7% of uniform values land an ulp off
+    (scripts/torch_sqrt_check.py).  On the CPU the f64 root rounded to
+    f32 is exact: 53 >= 2 * 24 + 2 bits."""
+    if x.is_cuda:
+        return torch.sqrt(x)
+    return torch.sqrt(x.to(torch.float64)).to(x.dtype)
+
+
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
     """int64 -> int32 with two's-complement wrap-around."""
     return (((x + 2 ** 31) & 0xFFFFFFFF) - 2 ** 31).to(torch.int32)

@@ -10,6 +10,7 @@ in torch; spot lights' acos is libm-defined, as in the JAX package.
 import torch
 
 from ..types import Lights
+from .fixed import sqrt_rn
 
 
 def _dot3(ax, ay, az, bx, by, bz):
@@ -19,7 +20,7 @@ def _dot3(ax, ay, az, bx, by, bz):
 
 def _normalize3(x, y, z):
     """Vec3::normalize (math.rs:39-49), zero-length guarded."""
-    ln = torch.sqrt(_dot3(x, y, z, x, y, z))
+    ln = sqrt_rn(_dot3(x, y, z, x, y, z))
     zero = ln == 0.0
     safe = torch.where(zero, torch.ones_like(ln), ln)
     zf = torch.zeros_like(ln)
@@ -58,7 +59,7 @@ def shade_points(normal, world_pos, lights: Lights, ambient=None):
         else:
             lpos = lights.position[i]
             tx, ty, tz = lpos[0] - px, lpos[1] - py, lpos[2] - pz
-            dist = torch.sqrt(_dot3(tx, ty, tz, tx, ty, tz))
+            dist = sqrt_rn(_dot3(tx, ty, tz, tx, ty, tz))
             out_of_range = (dist > radius) | (dist < 0.001)
             ux, uy, uz = _normalize3(tx, ty, tz)
             att = 1.0 - dist / torch.where(radius == 0,

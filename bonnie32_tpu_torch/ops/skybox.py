@@ -52,7 +52,7 @@ import torch
 from ..config import PROJ_DISTANCE, PROJ_SCALE
 from ..types import CameraArrays, FrameBuffers, resolve_device
 from . import color as col
-from .fixed import f32_to_i32
+from .fixed import f32_to_i32, sqrt_rn
 from .raster_batch import mask_words
 
 TWO_PI = 2.0 * math.pi
@@ -453,7 +453,7 @@ def sky_plane_ref(sky: SkyTables, scal: torch.Tensor, height: int,
     # per-pixel view ray -> world direction
     ndc_x = (pxf + 0.5 - c(r["half_w"])) / c(r["vs"]) / c(r["usq"])
     ndc_y = (pyf + 0.5 - c(r["half_h"])) / c(r["vs"]) / c(r["usq"])
-    norm = torch.sqrt(ndc_x * ndc_x + ndc_y * ndc_y + 1.0)
+    norm = sqrt_rn(ndc_x * ndc_x + ndc_y * ndc_y + 1.0)
     cx, cy, cz = ndc_x / norm, ndc_y / norm, 1.0 / norm
     wx = cx * b[0] + cy * b[3] + cz * b[6]
     wy = cx * b[1] + cy * b[4] + cz * b[7]

@@ -32,6 +32,7 @@ import torch
 
 from ..config import NEAR_PLANE, RasterSettings
 from ..types import CameraArrays, FrameBuffers
+from .color import pack_rgb as _pack_rgb
 from .fixed import f32_to_i32
 from .raster_batch import _lexsort
 from .vertex import transform_vertices
@@ -103,22 +104,17 @@ def line_pixels(x0, y0, x1, y1, width: int, height: int, max_steps: int):
     return xs, ys, t, valid
 
 
-def _pack_rgb(rgb) -> int:
-    r, g, b = rgb
-    word = r | (g << 8) | (b << 16) | (255 << 24)
-    return word - (1 << 32) if word >= (1 << 31) else word  # i32 wrap
-
-
-def _scatter_lines(buf, depth, ex, ey, ez, valid_edge, word: int,
+def scatter_lines(buf, depth, ex, ey, ez, valid_edge, word: int,
                    max_steps: int, depth_tested: bool, inst0: int,
-                   depth_mode: str = "inv"):
+                   depth_mode: str = "inv", inclusive: bool = False):
     """Draw the edges (I, E, 2) of instances inst0.. into `buf`, the flat
     colour planes of every instance plus one padding slot.  With
     `depth_tested` a pixel draws only where the line is strictly in front
     of the depth plane (draw_line_3d: z < buf, render.rs:795, 800): on an
     inverse-z plane ("inv") where its 1/z is above the plane's, on a
-    harmonic one where its z is below.  Depth is never written
-    (render.rs:793-797)."""
+    harmonic one where its z is below; `inclusive` lets a line level with
+    the plane draw too (draw_line_3d_overlay and the alpha pass, z <= buf,
+    render.rs:764, 822).  Depth is never written (render.rs:793-797)."""
     n, height, width = depth.shape
     xs, ys, t, step_ok = line_pixels(ex[..., 0], ey[..., 0], ex[..., 1],
                                      ey[..., 1], width, height, max_steps)
@@ -130,12 +126,12 @@ def _scatter_lines(buf, depth, ex, ey, ez, valid_edge, word: int,
     if depth_tested:
         plane = depth.reshape(-1)[torch.where(ok, pix, torch.zeros_like(pix))]
         if depth_mode == "harmonic":
-            ok &= z < plane
+            ok &= (z <= plane) if inclusive else (z < plane)
         else:
             # a line z <= 0 cannot beat a positive 1/z; the cleared 0 is far
             izl = torch.where(z > 0.0, torch.ones_like(z) / z,
                               torch.full_like(z, float("-inf")))
-            ok &= izl > plane
+            ok &= (izl >= plane) if inclusive else (izl > plane)
     buf.index_fill_(0, torch.where(ok, pix, torch.full_like(pix, n * height
                                                             * width)
                                    ).reshape(-1), word)
@@ -298,7 +294,7 @@ def render_wireframes_flat(color, depth, scene, cams: CameraArrays,
         for which, word, tested in passes:
             m = _dedup_mask_grouped(ex, ey, edges[which], group)
             bx, by, bz = _normalize_edge_order(ex, ey, ez)
-            _scatter_lines(buf, depth, bx, by, bz, m, word, max_steps,
+            scatter_lines(buf, depth, bx, by, bz, m, word, max_steps,
                            tested, s)
     return buf[:-1].reshape(n, height, width)
 
@@ -325,7 +321,7 @@ def render_wireframes(fb, mesh, faces, cams: CameraArrays, fog,
     for which, word, tested in passes:
         m = _dedup_mask(ex, ey, which)
         bx, by, bz = _normalize_edge_order(ex, ey, ez)
-        _scatter_lines(buf, fb.depth, bx, by, bz, m, word, max_steps, tested,
+        scatter_lines(buf, fb.depth, bx, by, bz, m, word, max_steps, tested,
                        0, depth_mode)
     return FrameBuffers(color=buf[:-1].reshape(n, height, width),
                         depth=fb.depth)

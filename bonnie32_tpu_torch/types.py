@@ -182,3 +182,27 @@ def to_device(tree, device):
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(to_device(x, device) for x in tree))
     return tree
+
+
+def device_of(*args) -> torch.device:
+    """The device of the first tensor among `args`; the CPU if none is
+    one (numpy arrays and Python numbers live on the host)."""
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return torch.device("cpu")
+
+
+def as_f32(x, device) -> torch.Tensor:
+    """`x` as an f32 tensor on `device` (numbers round to f32 as JAX's
+    `jnp.asarray(x, float32)` does)."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.float32)
+    return torch.as_tensor(np.asarray(x, np.float32), device=device)
+
+
+def f32_scalar(v: float, device) -> torch.Tensor:
+    """A 0-dim f32 constant on `device` (a divisor must be a tensor: torch
+    on CUDA turns `x / python_scalar` into a multiply by the reciprocal)."""
+    return torch.full((), float(np.float32(v)), dtype=torch.float32,
+                      device=device)

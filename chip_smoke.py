@@ -88,7 +88,13 @@ the JAX package.  In order:
      (`run_play`: a level saved and loaded through the native RON parser,
      GameToolState with scripted gamepad input, render_game_view at three
      sizes in RGB555 and 8-bit, the 8-bit render_level, the exact sky
-     mesh and the ECS systems, each against the CPU), with their times.
+     mesh and the ECS systems, each against the CPU), with their times;
+  7. the editor and modeler viewports (`run_editor`: the world editor's
+     3-D view with its overlays on three levels at two sizes, the player
+     camera preview, UiContext.paint with every command kind and icons,
+     the modeler's four panes composited and painted, the skeleton
+     overlay, the asset preview, and picking), each card = CPU with 0
+     differing pixels or values, with their times.
 
 ptxas' register count of every kernel instantiation is printed as one
 JSON object after the build.  The last two lines of standard output are
@@ -123,6 +129,8 @@ N_PLAY8 = 128          # the 8-bit pipeline's batch
 N_SKY_EXACT = 8        # the exact sky mesh walk's batch
 N_ECS = 1024           # instances of the ECS systems
 ECS_CAPACITY = 16      # entity slots an instance
+EDITOR_SIZES = ((640, 480), (320, 240))   # the editor view's sizes
+N_PICK_RAYS = 64       # seeded rays of the pick_triangle check
 
 # The card's peaks (NVIDIA H100 SXM, at its 700 W limit).  The f32 rate
 # is that of uncontracted instructions: 132 SMs x 128 lanes x 1.98 GHz.
@@ -1637,6 +1645,7 @@ def run(dev):
                    actions, env, level, tenv, tlevel, aenv, alevel, senv,
                    slevel, spawn)
     run_play(dev, card, phase_done, reset_counts, read_counts)
+    run_editor(dev, card, phase_done, reset_counts, read_counts)
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
@@ -2313,6 +2322,338 @@ def run_play(dev, card, phase_done, reset_counts, read_counts):
         _fail(f"ECS systems: {bad} values differ, {hits} damage events")
     phase_done("play: ECS systems")
     print("play path, ms a call (CUDA events, after one warm-up call): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" {card}")
+
+
+
+def run_editor(dev, card, phase_done, reset_counts, read_counts):
+    """The editor and modeler viewports on `dev` (torch code: no kernel
+    of the table launches), each held against the same call on the CPU:
+
+      * the world editor's 3-D view: render_editor_viewport with
+        RasterSettings.modeler() at 640x480 and 320x240 on the three
+        levels of tests/torch_editor_cases.py — the Cave-size level (a
+        selected floor face, a hovered face, the floor-placement
+        preview), the two-room level with a wall and a horizontal portal,
+        and the asset level with its AssetLibrary (the light octahedra)
+        and a player-spawn object (its cylinder): colour and depth card =
+        CPU, 0 differing pixels; GRID_INNER, ROOM_CURRENT, both portal
+        colours, SELECT_COLOR, HOVER_COLOR, GIZMO_LIGHT and GIZMO_PLAIN
+        each occur on the card's frames;
+      * render_player_camera_preview on the Cave-size level: card = CPU,
+        the green cylinder drawn;
+      * UiContext.paint of a queue with every command kind (fills at
+        alpha 128 and 255, overlapping alpha lines, a clipped triangle,
+        circles, clipped text, an image) and two icons, at 640x480:
+        0 differing words;
+      * the modeler: render_all_views of a two-cube MeshProject (320x240
+        panes), composite_views and paint; render_view_with_skeleton with
+        a posed five-bone rig in the perspective and the front pane; the
+        asset browser's render_preview of the two-part asset: 0 differing
+        pixels (the skeleton's geometry is built on the host, so the
+        card's sin and cos do not reach it);
+      * the pose math on tensors (pose_bones, bone_tips, rotate_by_euler
+        both ways): card vs CPU within 1e-3, the largest difference
+        printed (sin and cos differ by ulps between the libraries);
+      * picking: screen_to_ray and ray_plane_intersection at every pixel
+        of 320x240 from the Cave editor camera, pick_triangle over the
+        Cave-size level's triangles for N_PICK_RAYS seeded rays: equal
+        values, masks and indices.
+
+    The entry points run on their default device, which must be the
+    card.  Each is timed once after a warm-up call, between CUDA events,
+    with no kernel launch; the overlay pass (draw_viewport_overlays) is
+    also timed alone over each finished view."""
+    import numpy as np
+    import torch
+
+    import torch_editor_cases as ec
+    import torch_scenes as ts
+    from bonnie32_tpu_torch import ui
+    from bonnie32_tpu_torch.config import RasterSettings
+    from bonnie32_tpu_torch.editor import model_browser as MB
+    from bonnie32_tpu_torch.editor import state as ES
+    from bonnie32_tpu_torch.editor import viewport_edit as VE
+    from bonnie32_tpu_torch.editor import viewport_render as VR
+    from bonnie32_tpu_torch.models import animation as AN
+    from bonnie32_tpu_torch.models import asset as A
+    from bonnie32_tpu_torch.models import build
+    from bonnie32_tpu_torch.models import level as L
+    from bonnie32_tpu_torch.models import mesh as M
+    from bonnie32_tpu_torch.models import modeler_viewport as MV
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.models import user_texture as U
+    from bonnie32_tpu_torch.ops import picking as pk
+    from bonnie32_tpu_torch.types import FrameBuffers
+
+    cpu = torch.device("cpu")
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    times = {}
+
+    def timed(label, fn):
+        """fn() once untimed, then once between CUDA events; no kernel of
+        the table may launch.  Returns the timed call's result."""
+        fn()
+        torch.cuda.synchronize()
+        reset_counts()
+        evs[0].record()
+        out = fn()
+        evs[1].record()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        if any(counts.values()):
+            _fail(f"editor, {label}: launches {counts}, want none")
+        times[label] = evs[0].elapsed_time(evs[1])
+        return out
+
+    def on_card(label, t):
+        if t.device.type != dev.type:
+            _fail(f"editor, {label}: ran on {t.device}, not on {dev}")
+
+    def differ(a, b):
+        """Elements of a (on any device) that differ from b on the CPU."""
+        a = a.cpu()
+        if a.dtype.is_floating_point:
+            return int((~((a == b) | (torch.isnan(a) & torch.isnan(b))))
+                       .sum())
+        return int((a != b).sum())
+
+    def word(rgb):
+        return int(np.uint32(rgb[0] | (rgb[1] << 8) | (rgb[2] << 16)
+                             | (255 << 24)).astype(np.int32))
+
+    # ---- the world editor's 3-D view on three levels, two sizes ----
+    colours = ("GRID_INNER", "ROOM_CURRENT", "PORTAL_HORIZONTAL",
+               "PORTAL_WALL", "SELECT_COLOR", "HOVER_COLOR", "GIZMO_LIGHT",
+               "GIZMO_PLAIN")
+    seen = dict.fromkeys(colours, 0)
+    settings = RasterSettings.modeler()
+    cases = {}
+    for name in ec.EDITOR_CASES:
+        st, ed, hv, tex, kw = ec.editor_case(name, L, ES, VE, A, M, U, scene)
+        sc_d = scene.compile_level(st.level, tex, ts.resolver, device=dev,
+                                   **kw)
+        sc_c = scene.compile_level(st.level, tex, ts.resolver, device=cpu,
+                                   **kw)
+        cases[name] = (st, sc_d, sc_c)
+        for w, h in EDITOR_SIZES:
+            label = f"editor view, {name} level, {w}x{h}"
+            out = timed(label, lambda: VR.render_editor_viewport(
+                st, sc_d, w, h, settings=settings, editor=ed, hover=hv))
+            on_card(label, out.color)
+            ref = VR.render_editor_viewport(st, sc_c, w, h, settings=settings,
+                                            editor=ed, hover=hv, device=cpu)
+            dc, dd = differ(out.color, ref.color), differ(out.depth,
+                                                          ref.depth)
+            counts = {c: int((out.color == word(getattr(VR, c))).sum())
+                      for c in colours}
+            for c in colours:
+                seen[c] += counts[c]
+            print(f"{label}: card vs CPU {dc} differing pixels, {dd} depth; "
+                  f"overlay pixels " + ", ".join(
+                      f"{c} {n}" for c, n in counts.items() if n))
+            if dc or dd or tuple(out.color.shape) != (1, h, w):
+                _fail(f"{label}: {dc} pixels, {dd} depth differ from the CPU")
+            # the overlay pass alone, over the finished view
+            timed(f"overlay pass alone, {name} level, {w}x{h}",
+                  lambda: VR.draw_viewport_overlays(out, st, editor=ed,
+                                                    hover=hv))
+    missing = [c for c, n in seen.items() if not n]
+    if missing:
+        _fail(f"editor view: overlay colours {missing} never drawn")
+
+    st, sc_d, sc_c = cases["cave"]
+    room = st.level.rooms[0]
+    obj = L.AssetInstance(sector_x=4, sector_z=4, asset_id=A.PLAYER_SPAWN_ID)
+    label = "player camera preview, Cave-size level, 320x240"
+    out = timed(label, lambda: VR.render_player_camera_preview(
+        st, room, obj, 320, 240, scene=sc_d))
+    ref = VR.render_player_camera_preview(st, room, obj, 320, 240,
+                                          scene=sc_c, device=cpu)
+    diff = int((out != ref).sum())
+    green = int((out == word((100, 255, 100))).sum())
+    print(f"{label}: card vs CPU {diff} differing pixels, cylinder pixels "
+          f"{green}")
+    if diff or green < 20:
+        _fail(f"{label}: {diff} pixels differ, {green} cylinder pixels")
+    phase_done("editor: the 3-D view and the camera preview")
+
+    # ---- UiContext.paint and the icons at 640x480 ----
+    rng = np.random.default_rng(SEED + 6)
+    bg = (rng.integers(0, 1 << 24, (1, 480, 640)) | (255 << 24)).astype(
+        np.uint32).view(np.int32)
+
+    def paint(device):
+        fb = FrameBuffers(color=torch.from_numpy(bg).to(device),
+                          depth=torch.zeros((1, 480, 640), device=device))
+        fb = ec.paint_queue(ui, scale=4).paint(fb)
+        for name, scale, rect in ec.ICONS[:2]:
+            fb = ui.icons.draw_icon_centered(
+                fb, name, ui.Rect(*(4 * v for v in rect)), (255, 220, 40),
+                scale=4 * scale)
+        return fb.color
+
+    label = "UiContext.paint, every command kind and two icons, 640x480"
+    out = timed(label, lambda: paint(dev))
+    on_card(label, out)
+    ref = paint(cpu)
+    diff = differ(out, ref)
+    painted = int((ref != torch.from_numpy(bg)).sum())
+    print(f"{label}: card vs CPU {diff} differing words of "
+          f"{painted} painted")
+    if diff or painted < 10000:
+        _fail(f"{label}: {diff} words differ, {painted} painted")
+    phase_done("editor: UiContext.paint")
+
+    # ---- the modeler's panes, the skeleton, the asset preview ----
+    vp = ec.viewports(MV)
+    mesh, faces, atlas = MV.project_arrays(ec.mesh_project(M))
+    lights = build.lights_from_list(ts.DEFAULT_LIGHT_SPECS, ambient=0.5)
+    bounds = ui.Rect(0, 0, 640, 480)
+    msettings = RasterSettings.modeler()
+
+    def views(device=None):
+        frames = MV.render_all_views(vp, mesh, faces, atlas, lights,
+                                     msettings, bounds, pane_h=240,
+                                     pane_w=320, device=device)
+        ctx = ui.UiContext()
+        ctx.begin_frame(0, 0, False)
+        MV.composite_views(ctx, vp, frames, bounds)
+        blank = FrameBuffers(
+            color=torch.zeros((1, 480, 640), dtype=torch.int32,
+                              device=frames[MV.ViewportId.TOP].color.device),
+            depth=torch.zeros((1, 480, 640),
+                              device=frames[MV.ViewportId.TOP].color.device))
+        return frames, ctx.paint(blank).color
+
+    label = "modeler, four 320x240 panes, composited and painted"
+    frames, comp = timed(label, views)
+    rframes, rcomp = views(cpu)
+    on_card(label, comp)
+    diffs = {v.value: differ(frames[v].color, rframes[v].color)
+             for v in frames}
+    dcomp = differ(comp, rcomp)
+    print(f"{label}: card vs CPU differing pixels per pane {diffs}, "
+          f"composite {dcomp}")
+    if any(diffs.values()) or dcomp or len(frames) != 4:
+        _fail(f"{label}: {diffs}, composite {dcomp}")
+    bones, posed = ec.rig(AN), ec.pose(AN)
+    for view in (MV.ViewportId.PERSPECTIVE, MV.ViewportId.FRONT):
+        label = f"modeler skeleton, {view.value} pane, 320x240"
+        args = (vp, view, mesh, faces, atlas, lights, msettings, 240, 320,
+                bones)
+        out = timed(label, lambda: MV.render_view_with_skeleton(
+            *args, pose=posed))
+        ref = MV.render_view_with_skeleton(*args, pose=posed, device=cpu)
+        base = MV.render_view(*args[:-1], device=cpu)
+        diff = differ(out.color, ref.color) + differ(out.depth, ref.depth)
+        bone_px = int((ref.color != base.color).sum())
+        print(f"{label}: card vs CPU {diff} differing pixels and depths, "
+              f"bone pixels {bone_px}")
+        if diff or bone_px < 50:
+            _fail(f"{label}: {diff} differ, {bone_px} bone pixels")
+    lib = ts.asset_library(A, M)
+    utex = ts.user_textures(U)
+    browser = MB.AssetBrowser()
+    browser.orbit_distance = 2200.0
+    browser.orbit_center = (0.0, 300.0, 0.0)
+    label = "asset preview, two-part asset, 320x240"
+    out = timed(label, lambda: browser.render_preview(
+        lib.assets[ts.ASSET_ID], user_textures=utex))
+    on_card(label, out.color)
+    ref = browser.render_preview(lib.assets[ts.ASSET_ID], user_textures=utex,
+                                 device=cpu)
+    diff = differ(out.color, ref.color)
+    drawn = int((ref.color != ref.color.reshape(-1)[0]).sum())
+    print(f"{label}: card vs CPU {diff} differing pixels, {drawn} drawn")
+    if diff or drawn < 1000:
+        _fail(f"{label}: {diff} pixels differ, {drawn} drawn")
+    phase_done("editor: the modeler and the asset preview")
+
+    # ---- the pose math on tensors: the card's sin and cos ----
+    parent, lp, lr, ln = AN.bones_to_arrays(bones)
+    arng = np.random.default_rng(SEED + 8)
+    pose_p = torch.from_numpy(arng.uniform(-30, 30, (256, 5, 3)).astype(
+        np.float32))
+    pose_r = torch.from_numpy(arng.uniform(-40, 40, (256, 5, 3)).astype(
+        np.float32))
+    vec = torch.from_numpy(arng.uniform(-500, 500, (4096, 3)).astype(
+        np.float32))
+    rot = torch.from_numpy(arng.uniform(-180, 180, (4096, 3)).astype(
+        np.float32))
+
+    def pose_math(device):
+        wp, wr = AN.pose_bones(parent, lp.to(device), lr.to(device),
+                               pose_p.to(device), pose_r.to(device))
+        v, r = vec.to(device), rot.to(device)
+        return (wp, wr, AN.bone_tips(wp, wr, ln.to(device)),
+                AN.rotate_by_euler(v, r), AN.inverse_rotate_by_euler(v, r))
+
+    label = "pose math, 256 posed frames of the rig, 4096 rotations"
+    out = timed(label, lambda: pose_math(dev))
+    on_card(label, out[0])
+    ref = pose_math(cpu)
+    worst = max(float((a.cpu() - b).abs().max()) for a, b in zip(out, ref))
+    apart = sum(differ(a, b) for a, b in zip(out, ref))
+    print(f"{label}: card vs CPU {apart} values apart, largest |difference| "
+          f"{worst:.3e} world units or degrees (sin and cos differ by ulps "
+          f"between the card's and the CPU's libraries; limit 1e-3)")
+    if worst > 1e-3:
+        _fail(f"{label}: card and CPU {worst} apart")
+
+    # ---- picking ----
+    st = cases["cave"][0]
+    cam_pos = torch.from_numpy(np.asarray(st.camera_pos, np.float32))
+    basis = torch.from_numpy(np.asarray(st.camera_basis(), np.float32))
+    ys, xs = torch.meshgrid(torch.arange(240, dtype=torch.float32),
+                            torch.arange(320, dtype=torch.float32),
+                            indexing="ij")
+
+    def rays(device):
+        o, d = pk.screen_to_ray(xs.to(device), ys.to(device), 320, 240,
+                                cam_pos.to(device), basis.to(device))
+        t, ok = pk.ray_plane_intersection(
+            o, d, torch.tensor([0.0, 600.0, 0.0], device=device),
+            torch.tensor([0.0, 1.0, 0.0], device=device))
+        return o, d, t, ok
+
+    label = "picking, screen_to_ray + ray_plane_intersection, 320x240"
+    out = timed(label, lambda: rays(dev))
+    on_card(label, out[1])
+    ref = rays(cpu)
+    diffs = [differ(a, b) for a, b in zip(out, ref)]
+    hits = int(ref[3].sum())
+    print(f"{label}: card vs CPU differing origin, direction, t, mask "
+          f"{diffs}; {hits} pixels hit the plane")
+    if any(diffs) or hits == 0 or hits == 320 * 240:
+        _fail(f"{label}: {diffs} differ, {hits} hits")
+    sc_c = cases["cave"][2]
+    keep = sc_c.faces.valid[0]
+    tris = sc_c.mesh.pos[0][sc_c.faces.vidx[0][keep].long()]      # (T, 3, 3)
+    prng = np.random.default_rng(SEED + 7)
+    px = torch.from_numpy(prng.uniform(0, 320, N_PICK_RAYS).astype(
+        np.float32))
+    py = torch.from_numpy(prng.uniform(0, 240, N_PICK_RAYS).astype(
+        np.float32))
+
+    def pick(device):
+        o, d = pk.screen_to_ray(px.to(device), py.to(device), 320, 240,
+                                cam_pos.to(device), basis.to(device))
+        return pk.pick_triangle(o, d, tris.to(device))
+
+    label = (f"picking, pick_triangle, {N_PICK_RAYS} rays over "
+             f"{tris.shape[0]} triangles")
+    out = timed(label, lambda: pick(dev))
+    on_card(label, out[0])
+    ref = pick(cpu)
+    diffs = [differ(a, b) for a, b in zip(out, ref)]
+    n_hit = int(ref[2].sum())
+    print(f"{label}: card vs CPU differing index, t, hit {diffs}; "
+          f"{n_hit} rays hit")
+    if any(diffs) or n_hit < N_PICK_RAYS // 2:
+        _fail(f"{label}: {diffs} differ, {n_hit} hits")
+    phase_done("editor: picking")
+    print("editor path, ms a call (CUDA events, after one warm-up call): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" {card}")
 
 

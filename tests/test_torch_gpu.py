@@ -31,7 +31,10 @@ launches no raster kernel; on the game settings it equals the kernel
 route on the card.  The play path: the 8-bit pipeline on an F32_MAX
 clear, the exact sky mesh walk (also against the numpy golden) and one
 render_game_view (one `raster_sky` launch, the sky within one step)
-equal the CPU.
+equal the CPU.  The editor path (torch code): every draw2d primitive,
+UiContext.paint with the icons, render_editor_viewport on the three
+editor levels (no raster kernel launched) and pick_triangle equal the
+CPU bit for bit.
 """
 
 import numpy as np
@@ -936,3 +939,154 @@ def test_render_game_view_matches_cpu(env):
     assert not bool((step[faces] > 0).any())
     assert not bool((step[~faces] > 1).any())
     assert torch.equal(card.depth.cpu(), cpu.depth)
+
+
+# ---- the editor and modeler viewports (torch code, no kernel launch) ----
+
+def _draw2d_cases(td, cams):
+    """draw2d primitives of every kind on a 120x160 frame, as functions of
+    a FrameBuffers."""
+    r = np.random.default_rng(8)
+    ex = r.integers(-20, 180, (12, 2)).astype(np.int32)
+    ey = r.integers(-20, 140, (12, 2)).astype(np.int32)
+    ez = r.uniform(1.0, 60.0, (12, 2)).astype(np.float32)
+    p0 = r.uniform(-6, 6, (16, 3)).astype(np.float32)
+    p1 = r.uniform(-6, 6, (16, 3)).astype(np.float32)
+    return {
+        "gradient": lambda fb: td.clear_gradient(fb, (200, 100, 0),
+                                                 (0, 50, 250)),
+        "rects": lambda fb: td.draw_rect(td.draw_filled_rect(
+            fb, 10, 5, 150, 100, (255, 0, 0), alpha=128), 3, 3, 90, 60,
+            (0, 255, 0)),
+        "circles": lambda fb: td.draw_circle_outline(td.draw_circle(
+            fb, 60, 50, 25, (255, 128, 0), alpha=90), 80, 60, 40,
+            (0, 200, 0), thickness=3),
+        "triangle": lambda fb: td.draw_filled_triangle(
+            fb, 10.3, 5.7, 150.2, 40.9, 60.5, 115.1, (200, 10, 10),
+            alpha=100, clip=(20, 10, 120, 100)),
+        "scanline": lambda fb: td.draw_filled_triangle_scanline(
+            fb, (10, 100), (150, 10), (90, 130), (255, 255, 100)),
+        "thick_line": lambda fb: td.draw_thick_line(fb, 10, 10, 150, 100, 6,
+                                                    (255, 0, 128)),
+        "lines": lambda fb: td.draw_lines(fb, ex, ey, (255, 40, 10)),
+        "lines_alpha": lambda fb: td.draw_lines_alpha(fb, ex, ey,
+                                                      (20, 240, 90), 128),
+        "lines_3d_alpha": lambda fb: td.draw_lines_3d_alpha(
+            fb, ex, ey, ez, (40, 250, 200), 128, depth_mode="harmonic"),
+        "lines_3d_255": lambda fb: td.draw_lines_3d_alpha(
+            fb, ex, ey, ez, (40, 250, 200), 255, depth_mode="harmonic"),
+        "clipped_3d": lambda fb: td.draw_3d_lines_clipped(
+            fb, p0, p1, cams(fb), (255, 100, 40)),
+        "floor_grid": lambda fb: td.draw_floor_grid(fb, cams(fb), 2.0, 1.0,
+                                                    5.0),
+        "cylinder": lambda fb: td.draw_wireframe_cylinder(
+            fb, cams(fb), (0.5, 1.0, 2.0), 3.0, -4.0, depth_test="equal"),
+        "text_image": lambda fb: td.draw_image(td.draw_text(
+            fb, 3, 4, "Hello 0123", (250, 250, 0), scale=2,
+            clip=(0, 0, 100, 60)), 130, -10, ex.reshape(4, 6)),
+    }
+
+
+def test_draw2d_primitives_match_cpu(env):
+    """Every draw2d primitive on two instances: card = CPU, bit for bit."""
+    from bonnie32_tpu_torch.ops import draw2d as td
+    from bonnie32_tpu_torch.types import FrameBuffers
+    _, dev, _ = env
+    r = np.random.default_rng(9)
+    color = torch.from_numpy((r.integers(0, 1 << 24, (2, 120, 160))
+                              | (255 << 24)).astype(np.uint32).view(np.int32))
+    depth = torch.from_numpy(r.uniform(2, 60, (2, 120, 160)).astype(
+        np.float32))
+    pos = torch.tensor([[0.0, 6.0, -12.0], [2.0, 8.0, -9.0]])
+    basis = torch.from_numpy(np.stack([build.camera_basis(0.25, 0.15),
+                                       build.camera_basis(0.45, -0.3)]))
+
+    def cams(fb):
+        d = fb.color.device
+        return CameraArrays(pos.to(d), basis.to(d))
+
+    for name, case in _draw2d_cases(td, cams).items():
+        card = case(FrameBuffers(color.to(dev), depth.to(dev)))
+        cpu = case(FrameBuffers(color.clone(), depth.clone()))
+        assert card.color.device.type == "cuda", name
+        assert torch.equal(card.color.cpu(), cpu.color), name
+        assert torch.equal(card.depth.cpu(), cpu.depth), name
+        assert bool((cpu.color != color).any()), name
+
+
+def test_paint_and_icons_match_cpu(env):
+    import torch_editor_cases as ec
+    from bonnie32_tpu_torch import ui
+    from bonnie32_tpu_torch.types import FrameBuffers
+    _, dev, _ = env
+    bg = torch.from_numpy((np.random.default_rng(3).integers(
+        0, 1 << 24, (1, 480, 640)) | (255 << 24)).astype(np.uint32).view(
+        np.int32))
+    out = {}
+    for device in (dev, torch.device("cpu")):
+        fb = FrameBuffers(bg.to(device), torch.zeros((1, 480, 640),
+                                                      device=device))
+        fb = ec.paint_queue(ui, scale=4).paint(fb)
+        for name, scale, rect in ec.ICONS:
+            fb = ui.icons.draw_icon_centered(
+                fb, name, ui.Rect(*(4 * v for v in rect)), (9, 200, 90),
+                scale=4 * scale)
+        out[device.type] = fb.color
+    assert out["cuda"].device.type == "cuda"
+    assert torch.equal(out["cuda"].cpu(), out["cpu"])
+
+
+@pytest.mark.parametrize("name", ["cave", "two_room", "asset"])
+def test_render_editor_viewport_matches_cpu(env, name):
+    """The world editor's 3-D view at 320x240 on the card by default:
+    colour and depth equal the CPU's, and no raster kernel launches."""
+    import torch_editor_cases as ec
+    from bonnie32_tpu_torch.editor import state as ES
+    from bonnie32_tpu_torch.editor import viewport_edit as VE
+    from bonnie32_tpu_torch.editor import viewport_render as VR
+    from bonnie32_tpu_torch.models import asset as A
+    from bonnie32_tpu_torch.models import mesh as M
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.models import user_texture as U
+    from bonnie32_tpu_torch.ops import _cuda
+    _, dev, _ = env
+    st, ed, hv, tex, kw = ec.editor_case(name, L, ES, VE, A, M, U, scene)
+    sc_c = scene.compile_level(st.level, tex, ts.resolver, device="cpu",
+                               **kw)
+    before = (_cuda.raster_visibility.launches, _cuda.raster_resolve.launches)
+    card = VR.render_editor_viewport(st, sc_c, 320, 240, editor=ed,
+                                     hover=hv)
+    torch.cuda.synchronize()
+    assert (_cuda.raster_visibility.launches,
+            _cuda.raster_resolve.launches) == before
+    cpu = VR.render_editor_viewport(st, sc_c, 320, 240, editor=ed, hover=hv,
+                                    device="cpu")
+    assert card.color.device.type == "cuda"
+    assert torch.equal(card.color.cpu(), cpu.color)
+    assert torch.equal(card.depth.cpu(), cpu.depth)
+
+
+def test_pick_triangle_matches_cpu(env):
+    """64 seeded rays over the Cave-size level's triangles, and a ray per
+    pixel onto a plane: equal indices, t and masks."""
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.ops import picking as pk
+    level, dev, _ = env
+    sc_c = scene.compile_level(level, ts.textures(), ts.resolver,
+                               device="cpu")
+    tris = sc_c.mesh.pos[0][sc_c.faces.vidx[0][sc_c.faces.valid[0]].long()]
+    r = np.random.default_rng(4)
+    px = torch.from_numpy(r.uniform(0, 320, 64).astype(np.float32))
+    py = torch.from_numpy(r.uniform(0, 240, 64).astype(np.float32))
+    cam = torch.tensor([512.0, 2000.0, -300.0])
+    basis = torch.from_numpy(build.camera_basis(0.25, 0.6))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        o, v = pk.screen_to_ray(px.to(d), py.to(d), 320, 240, cam.to(d),
+                                basis.to(d))
+        out.append(pk.pick_triangle(o, v, tris.to(d))
+                   + pk.ray_plane_intersection(o, v, cam.to(d) * 0,
+                                               basis[1].to(d)))
+    for a, b in zip(*out):
+        assert torch.equal(a.cpu(), b)
+    assert int(out[1][2].sum()) > 32
