@@ -9,8 +9,9 @@ The reference polls macroquad/gilrs; here the backends are pluggable
 `VirtualKeyboard` / `VirtualGamepad` objects (scripted rollouts, tests,
 or a real host shim).  `InputState.to_actions()` bridges to the batched
 simulation's Actions snapshot (game/step.py).  A copy of the JAX
-package's input/ (bonnie32_tpu/input/); its debug.py and midi.py, which
-draw UI or read devices, are not carried.
+package's input/ (bonnie32_tpu/input/), with its MIDI queue (`midi.py`,
+over a pluggable backend); its debug.py, which draws UI, is not carried
+yet.
 """
 
 from .actions import (ACTIONS, Action, GAMEPAD_BINDINGS, KEYBOARD_BINDINGS,

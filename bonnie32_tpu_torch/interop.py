@@ -9,6 +9,8 @@ to feed both implementations the same state, scene and prep.
 import numpy as np
 import torch
 
+from .audio import resampler as rsp
+from .audio import reverb as rvb
 from .game import events as ev
 from .game.collision import CollisionGrid, PlayerParams
 from .game.state import GameState
@@ -180,3 +182,13 @@ def sky_tables(src, skybox, device="cpu") -> sky_ops.SkyTables:
         all_colors=_t(src.all_colors, device),
         all_faces=_t(src.all_faces, device),
         all_valid=_t(src.all_valid, device))
+
+
+def reverb_state(src, device="cpu") -> rvb.ReverbState:
+    """A JAX audio ReverbState (buffers, pos, accum; vmapped or not)."""
+    return _same_fields(rvb.ReverbState, src, device)
+
+
+def resampler_state(src, device="cpu") -> rsp.ResamplerState:
+    """A JAX audio ResamplerState (vmapped or not)."""
+    return _same_fields(rsp.ResamplerState, src, device)

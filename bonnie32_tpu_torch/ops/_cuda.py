@@ -1,7 +1,8 @@
 """Build, load and launch the CUDA kernels of csrc/raster.cu
 (`raster_bin`, `raster_visibility`, `raster_resolve`, `raster_composite`,
-`raster_sky`); csrc/gather.cu is built and loaded here too and launched
-by ops/gather.py.
+`raster_sky`); csrc/gather.cu and csrc/audio.cu are built and loaded here
+too and launched by ops/gather.py and by audio/reverb.py and
+audio/resampler.py.
 
 nvcc compiles each source into a shared library with a plain C interface
 (no PyTorch headers: seconds, not minutes), named by a hash of the source
@@ -27,7 +28,8 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = {"raster": _CSRC / "raster.cu", "gather": _CSRC / "gather.cu"}
+SOURCES = {"raster": _CSRC / "raster.cu", "gather": _CSRC / "gather.cu",
+           "audio": _CSRC / "audio.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
               "-std=c++17", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
@@ -187,10 +189,16 @@ def load(name: str = "raster"):
                            lib.raster_resolve, lib.raster_composite,
                            lib.raster_sky):
                     fn.restype = i32
-            else:
+            elif name == "gather":
                 lib.select_gather.argtypes = [ptr] * 3 + [
                     ctypes.c_longlong, i32, ptr]
                 lib.select_gather.restype = i32
+            else:
+                f32 = ctypes.c_float
+                lib.spu_reverb.argtypes = ([ptr] * 9 + [i32] * 2
+                                           + [f32] * 4 + [i32, ptr])
+                lib.spu_resample.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+                lib.spu_reverb.restype = lib.spu_resample.restype = i32
             _libs[name] = lib
     return _libs[name]
 

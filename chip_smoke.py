@@ -7,9 +7,9 @@ Needs one CUDA card, nvcc and this checkout; imports nothing of jax or of
 the JAX package.  In order:
 
   1. prints the card's name and power limit (nvidia-smi) and builds the
-     CUDA kernels of bonnie32_tpu_torch/csrc/raster.cu and gather.cu from
-     source into build/torch_kernels/ (one nvcc each, started together,
-     sm_90a), printing ptxas' register report;
+     CUDA kernels of bonnie32_tpu_torch/csrc/raster.cu, gather.cu and
+     audio.cu from source into build/torch_kernels/ (one nvcc each,
+     started together, sm_90a), printing ptxas' register report;
   2. builds the Cave-size level of tests/torch_scenes.py in code, its
      transparent variant (20 faces glazed with every PS1 blend mode), the
      same room with a two-part asset placed twice (lit by its Light
@@ -94,7 +94,13 @@ the JAX package.  In order:
      camera preview, UiContext.paint with every command kind and icons,
      the modeler's four panes composited and painted, the skeleton
      overlay, the asset preview, and picking), each card = CPU with 0
-     differing pixels or values, with their times.
+     differing pixels or values, with their times;
+  8. the tracker's audio path (`run_audio`): the SPU reverb
+     (`spu_reverb`) and the Gaussian resampler (`spu_resample`) of
+     csrc/audio.cu against their twins on every preset and pitch, a 32 s
+     8-channel song rendered by `render_song` and streamed by
+     `AudioStream.render_audio` (60 Hz and ragged deltas), bit for bit,
+     through the oscillators and through a SoundFont, and their times.
 
 ptxas' register count of every kernel instantiation is printed as one
 JSON object after the build.  The last two lines of standard output are
@@ -131,6 +137,18 @@ N_ECS = 1024           # instances of the ECS systems
 ECS_CAPACITY = 16      # entity slots an instance
 EDITOR_SIZES = ((640, 480), (320, 240))   # the editor view's sizes
 N_PICK_RAYS = 64       # seeded rays of the pick_triangle check
+AUDIO_STREAMS = 8      # seeded streams a preset / pitch, kernel vs twin
+AUDIO_CHECK = 1024     # samples a reverb call, kernel vs twin (two calls)
+RESAMPLE_CHECK = 2048  # samples a pitch, kernel vs twin (two calls)
+# the real-size song: 8 channels, 4 x 64 rows at 120 bpm and 4 rows a
+# beat (32 s), HALL at wet 80, channel 0 at 22 kHz (the resampler runs)
+AUDIO_SONG = dict(patterns=4, rows=64, channels=8, bpm=120, reverb=5,
+                  wet=80, rate0=2)
+AUDIO_FONT_CHANNEL = 1  # the channel the SoundFont render keeps
+AUDIO_FRAMES = 121     # render_audio(1/60) calls timed (first not counted)
+AUDIO_CHUNK = 4096     # samples a kernel call in the S=1 / S=64 times
+AUDIO_WIDE = 64        # streams of the wide kernel time
+AUDIO_REPS = 5         # timed kernel calls
 
 # The card's peaks (NVIDIA H100 SXM, at its 700 W limit).  The f32 rate
 # is that of uncontracted instructions: 132 SMs x 128 lanes x 1.98 GHz.
@@ -185,6 +203,8 @@ SRC = "bonnie32_tpu_torch/csrc/raster.cu"
 GATHER_SRC = "bonnie32_tpu_torch/csrc/gather.cu"
 JAX_RB = "bonnie32_tpu/ops/raster_batch.py"
 JAX_GATHER = "bonnie32_tpu/ops/gather_pallas.py"
+AUDIO_SRC = "bonnie32_tpu_torch/csrc/audio.cu"
+JAX_AUDIO = "bonnie32_tpu/audio"
 BLEND_NAMES = ("OPAQUE", "AVERAGE", "ADD", "SUBTRACT", "ADD_QUARTER",
                "ERASE")
 
@@ -249,6 +269,8 @@ def run(dev):
     sys.path[:0] = [repo, os.path.join(repo, "tests")]
     import torch_scenes as ts
     from bonnie32_tpu_torch import rollout
+    from bonnie32_tpu_torch.audio import resampler as rsp
+    from bonnie32_tpu_torch.audio import reverb as rvb
     from bonnie32_tpu_torch.config import RasterSettings
     from bonnie32_tpu_torch.game import step as stp
     from bonnie32_tpu_torch.models import asset as A
@@ -333,7 +355,7 @@ def run(dev):
           f"{sky_envs['sunset'][1].sky.face_table.shape[0]} mountain faces")
     kernels = (_cuda.raster_visibility, _cuda.raster_resolve,
                _cuda.raster_composite, _cuda.raster_sky, tg.select_gather,
-               _cuda.raster_bin)
+               _cuda.raster_bin, rvb.spu_reverb, rsp.spu_resample)
 
     def reset_counts():
         for k in kernels:
@@ -928,7 +950,7 @@ def run(dev):
         phase_done(f"main path, {label}")
         return counts, ms, start, acts
 
-    vis, res, comp, ksky, kgather, kbin = (k.__name__ for k in kernels)
+    vis, res, comp, ksky, kgather, kbin = (k.__name__ for k in kernels[:6])
     runs = {}
     runs["opaque"] = main_path(env, level, game, FRAMES, WARMUP,
                                {vis: 1, res: 1, comp: 0, kbin: 1},
@@ -1646,6 +1668,7 @@ def run(dev):
                    slevel, spawn)
     run_play(dev, card, phase_done, reset_counts, read_counts)
     run_editor(dev, card, phase_done, reset_counts, read_counts)
+    audio_rows = run_audio(dev, card, phase_done, reset_counts, read_counts)
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
@@ -1708,7 +1731,7 @@ def run(dev):
          "max_abs_err": err[name], "ms": ms[name], "plain_ms": plain[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "library_ms": library.get(name), "counted_on": counted_on[name]}
-        for name in ms]}))
+        for name in ms] + audio_rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
@@ -2655,6 +2678,452 @@ def run_editor(dev, card, phase_done, reset_counts, read_counts):
     phase_done("editor: picking")
     print("editor path, ms a call (CUDA events, after one warm-up call): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" {card}")
+
+
+def _audio_deltas(total, rate, rng, overshoot=2000):
+    """render_audio deltas: mostly one 60 Hz frame, a quarter of them one
+    of tests/test_audio_stream.py's ragged sizes (37, 256, 441, 1,000 or
+    1,361 samples), until `overshoot` samples past the horizon."""
+    import numpy as np
+    sizes = np.array([37, 256, 441, 1000, 1361])
+    deltas, produced = [], 0.0
+    while produced < total + overshoot:
+        if rng.random() < 0.25:
+            k = float(sizes[rng.integers(len(sizes))])
+            deltas.append(k / rate)
+        else:
+            k = rate / 60.0
+            deltas.append(1.0 / 60.0)
+        produced += k
+    return deltas
+
+
+def _reverb_words(params, ticks):
+    """The work-buffer words a reverb call must move for `ticks` 22.05 kHz
+    ticks with the registers `params` (32,), its reads and writes walked
+    in the order of `reverb.process_ref`: (reads, writes), each summed
+    over both sides.  A word counts as one read where the call reads it
+    before it writes it (a word the call wrote is read back from what it
+    wrote, not from memory), and as one write however often it is
+    written.  The count does not depend on the start position."""
+    from bonnie32_tpu_torch.audio import reverb as rvb
+    p = {k: int(params[i]) for k, i in rvb._IDX.items()}
+
+    def back(name, sub):
+        return (p[name] - sub) & 0xFFFF
+    # one tick: (side, offset from pos, whether it writes)
+    tick = [("l", p["d_l_same"], 0), ("l", back("m_l_same", 2), 0),
+            ("l", p["m_l_same"], 1),
+            ("r", p["d_r_same"], 0), ("r", back("m_r_same", 2), 0),
+            ("r", p["m_r_same"], 1),
+            ("r", p["d_r_diff"], 0), ("l", back("m_l_diff", 2), 0),
+            ("l", p["m_l_diff"], 1),
+            ("l", p["d_l_diff"], 0), ("r", back("m_r_diff", 2), 0),
+            ("r", p["m_r_diff"], 1)]
+    tick += [(s, p[f"m_{s}_comb{k}"], 0) for s in "lr" for k in range(1, 5)]
+    for stage in "12":
+        for s in "lr":
+            m = f"m_{s}_apf{stage}"
+            tick += [(s, back(m, p[f"d_apf{stage}"]), 0), (s, p[m], 1)]
+    read, written = set(), set()
+    for t in range(ticks):
+        for side, off, writes in tick:
+            word = (side, (t + off) & (rvb.BUFFER_SIZE - 1))
+            if writes:
+                written.add(word)
+            elif word not in written:
+                read.add(word)
+    return len(read), len(written)
+
+
+def run_audio(dev, card, phase_done, reset_counts, read_counts):
+    """The tracker's audio path on `dev`: host synthesis (numpy), then the
+    master gain, the SPU reverb (`spu_reverb`) and the Gaussian resampler
+    (`spu_resample`) of csrc/audio.cu on the card.
+
+      (a) `spu_reverb` against its twin `reverb.process_ref` on the card:
+          all nine presets x AUDIO_STREAMS seeded streams (noise at
+          levels from quiet to clipping, and square waves loud enough
+          that `_mul_vol`'s product wraps) in one batched call of
+          AUDIO_CHECK samples, the state carried into a second: 0
+          differing output samples, buffer words, pos and accum;
+      (b) `spu_resample` against `resampler.process_ref` at pitches
+          0x0800, 0x0400 and 0x0200, AUDIO_STREAMS streams, two calls of
+          RESAMPLE_CHECK / 2 samples: 0 differing;
+      (c) a real-size song (tests/torch_scenes.py `demo_song`: 8 channels,
+          4 patterns of 64 rows in order, 120 bpm at 4 rows a beat: 32 s,
+          1,411,200 samples; channels 0-4 one per oscillator family,
+          reverb HALL at wet 80, channel 0 at 22 kHz so the resampler
+          runs): `engine.render_song` (one launch of each kernel) against
+          an `AudioStream` driven by 60 Hz deltas with ragged ones mixed
+          in (one launch of each kernel per call that renders), 0
+          differing samples; then the same song with only channel 1's
+          notes through the SoundFont `sine_font` (the synth plays every
+          channel through the SoundFont or every channel through the
+          oscillators, never both), the same check; a short song
+          (6 rows at 1,200 bpm) card vs CPU, 0 differing samples;
+      (d) times: the song's render and its split (host synth, copy to
+          the card, gain + reverb, resampler, copy back), the ms per
+          render_audio(1/60) call and the real-time factor, and each
+          kernel's ms per AUDIO_CHUNK-sample chunk at S = 1 and S =
+          AUDIO_WIDE streams, with the ns per 22.05 kHz tick; then both
+          kernels against their twins at the main path's shapes (S = 1,
+          one 735-sample frame and a ragged 37-sample call, the state
+          carried and updated in place as SpuChain does): 0 differing.
+
+    Returns the two kernels' rows of the `kernels` line: ms and plain ms
+    at the streamed chunk (S = 1, one 60 Hz frame of 735 samples), the
+    launches of the streamed run, the largest difference from the twin
+    over (a), (b) and the main path's shapes, the bound from the bytes
+    that chunk must move (`_reverb_words`)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    import torch_scenes as ts
+    from bonnie32_tpu_torch.audio import engine
+    from bonnie32_tpu_torch.audio import resampler as rsp
+    from bonnie32_tpu_torch.audio import reverb as rvb
+    from bonnie32_tpu_torch.audio import sf2
+    from bonnie32_tpu_torch.audio import song as M
+    from bonnie32_tpu_torch.audio import stream as strm
+
+    cpu = torch.device("cpu")
+    rng = np.random.default_rng(SEED)
+    rate = strm.SAMPLE_RATE
+    err = {}
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def events_ms(fn, reps):
+        """fn() once untimed, then `reps` calls between CUDA events: ms
+        a call."""
+        fn()
+        evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        sync()
+        evs[0].record()
+        for _ in range(reps):
+            fn()
+        evs[1].record()
+        sync()
+        return evs[0].elapsed_time(evs[1]) / reps
+
+    # ---- (a) spu_reverb vs its twin: every preset, loud inputs too ----
+    n_pre = 9
+    s_all = n_pre * AUDIO_STREAMS
+    params = np.repeat(np.stack([rvb.preset_params(p)
+                                 for p in range(1, n_pre + 1)]),
+                       AUDIO_STREAMS, 0)
+    n = 2 * AUDIO_CHECK
+    sigma = rng.uniform(0.02, 1.5, (s_all, 1))
+    left = (rng.standard_normal((s_all, n)) * sigma).astype(np.float32)
+    right = (rng.standard_normal((s_all, n)) * sigma).astype(np.float32)
+    square = np.where((np.arange(n) // 50) % 2 == 0, 1.0, -1.0)
+    left[::AUDIO_STREAMS // 2] = square       # two loud streams a preset
+    right[::AUDIO_STREAMS // 2] = -square
+    wet = 80 / 127.0
+    st_k = rvb.init_state(dev, streams=s_all)
+    st_p = rvb.init_state(dev, streams=s_all)
+    diffs = {"out": 0, "buffer words": 0, "pos": 0, "accum": 0}
+    worst = 0.0
+    for a in (0, AUDIO_CHECK):
+        seg = slice(a, a + AUDIO_CHECK)
+        lt = torch.from_numpy(left[:, seg]).to(dev)
+        rt = torch.from_numpy(right[:, seg]).to(dev)
+        st_k, kl, kr = rvb.process(st_k, lt, rt, params, wet)
+        st_p, pl, pr = rvb.process_ref(st_p, lt, rt, params, wet)
+        sync()
+        diffs["out"] += int((kl != pl).sum() + (kr != pr).sum())
+        worst = max(worst, float((kl - pl).abs().max()),
+                    float((kr - pr).abs().max()))
+        diffs["buffer words"] += int((st_k.buffer_l != st_p.buffer_l).sum()
+                                     + (st_k.buffer_r != st_p.buffer_r)
+                                     .sum())
+        diffs["pos"] += int((st_k.pos != st_p.pos).sum())
+        diffs["accum"] += int((st_k.accum != st_p.accum).sum())
+    print(f"audio (a): spu_reverb vs process_ref, {n_pre} presets x "
+          f"{AUDIO_STREAMS} streams, {AUDIO_CHECK} samples x 2 calls "
+          f"(state carried): differing {diffs}, largest output difference "
+          f"{worst}")
+    if any(diffs.values()) or not bool(st_k.buffer_l.any()):
+        _fail(f"spu_reverb disagrees with its twin: {diffs}")
+    err["spu_reverb"] = worst
+    phase_done("audio: spu_reverb vs plain")
+
+    # ---- (b) spu_resample vs its twin ----
+    worst = 0.0
+    for pitch in (rsp.PITCH_22K, rsp.PITCH_11K, rsp.PITCH_5K):
+        st_k = rsp.init_state(dev, streams=AUDIO_STREAMS)
+        st_p = rsp.init_state(dev, streams=AUDIO_STREAMS)
+        sig = (rng.standard_normal((AUDIO_STREAMS, RESAMPLE_CHECK))
+               * rng.uniform(0.05, 1.2, (AUDIO_STREAMS, 1))
+               ).astype(np.float32)
+        bad = 0
+        half = RESAMPLE_CHECK // 2 + 1
+        for seg in (slice(0, half), slice(half, RESAMPLE_CHECK)):
+            lt = torch.from_numpy(sig[:, seg]).to(dev)
+            rt = torch.from_numpy(-sig[:, seg] * 0.5).to(dev)
+            st_k, kl, kr = rsp.process(st_k, lt, rt, pitch)
+            st_p, pl, pr = rsp.process_ref(st_p, lt, rt, pitch)
+            sync()
+            bad += int((kl != pl).sum() + (kr != pr).sum())
+            bad += sum(int((a != b).sum()) for a, b in zip(st_k, st_p))
+            worst = max(worst, float((kl - pl).abs().max()),
+                        float((kr - pr).abs().max()))
+        print(f"audio (b): spu_resample vs process_ref, pitch {pitch:#06x},"
+              f" {AUDIO_STREAMS} streams, {RESAMPLE_CHECK} samples in two "
+              f"calls: {bad} differing samples and state values")
+        if bad:
+            _fail(f"spu_resample at pitch {pitch:#x} disagrees with its "
+                  f"twin: {bad}")
+    err["spu_resample"] = worst
+    phase_done("audio: spu_resample vs plain")
+
+    # ---- (c) the 32 s song: render_song vs AudioStream ----
+    song = ts.demo_song(M, **AUDIO_SONG, seed=SEED)
+    seconds = song.total_rows() / song.rows_per_second()
+    total = int(seconds * rate)
+
+    def stream_run(s, font, label):
+        st = strm.AudioStream(s, soundfont=font, device=dev)
+        deltas = _audio_deltas(st.total, rate, np.random.default_rng(SEED))
+        parts_l, parts_r, calls = [], [], 0
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        for d in deltas:
+            calls += st.render_audio(d) > 0
+            l_, r_ = st.read(st.ring.available)
+            parts_l.append(l_)
+            parts_r.append(r_)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"spu_reverb": calls, "spu_resample": calls}
+        if {k: counts[k] for k in want} != want or any(
+                v for k, v in counts.items() if k not in want):
+            _fail(f"{label} stream: launches {counts}, want {want}")
+        print(f"audio (c): {label}, AudioStream: {len(deltas)} "
+              f"render_audio calls ({calls} rendering), {wall:.3f} s, "
+              f"launches {counts}")
+        return np.concatenate(parts_l), np.concatenate(parts_r), counts
+
+    def offline_run(s, font, label):
+        sync()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = engine.render_song(s, soundfont=font, device=dev)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        want = {"spu_reverb": 1, "spu_resample": 1}
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            _fail(f"{label} render_song: launches {counts}, want {want}")
+        print(f"audio (c): {label}, render_song: {len(out[0])} samples "
+              f"({seconds:.1f} s), {wall:.3f} s, launches {counts}")
+        return out, wall
+
+    def check_song(label, out, streamed):
+        lo, ro = out
+        n_ = len(lo)
+        bad = int((lo != streamed[0][:n_]).sum()
+                  + (ro != streamed[1][:n_]).sum())
+        peak = float(np.abs(lo).max())
+        finite = bool(np.isfinite(lo).all() and np.isfinite(ro).all())
+        print(f"audio (c): {label}: streamed vs offline {bad} differing "
+              f"samples of {2 * n_}; peak {peak:.4f}, finite {finite}")
+        if bad or n_ != total or not finite or not 0.01 < peak <= 4.0:
+            _fail(f"{label}: streamed vs offline {bad} differ, {n_} "
+                  f"samples (want {total}), peak {peak}, finite {finite}")
+
+    t_phase = time.perf_counter()
+    osc_out, osc_wall = offline_run(song, None, "oscillators")
+    osc_stream = stream_run(song, None, "oscillators")
+    check_song("oscillators", osc_out, osc_stream)
+    stream_launches = osc_stream[2]
+    font_song = ts.demo_song(M, **AUDIO_SONG, seed=SEED)
+    for pat in font_song.patterns:
+        for c in range(len(pat.channels)):
+            if c != AUDIO_FONT_CHANNEL:
+                pat.channels[c] = [M.Note() for _ in range(pat.length)]
+    font = sf2.load(ts.sine_font(sf2))
+    font_out, font_wall = offline_run(font_song, font, "SoundFont")
+    check_song("SoundFont", font_out,
+               stream_run(font_song, font, "SoundFont"))
+    short = ts.demo_song(M, patterns=1, rows=6, channels=5, bpm=1200,
+                         reverb=5, rate0=2, seed=SEED)
+    card_l, card_r = engine.render_song(short, device=dev)
+    cpu_l, cpu_r = engine.render_song(short, device=cpu)
+    bad = int((card_l != cpu_l).sum() + (card_r != cpu_r).sum())
+    print(f"audio (c): short song ({len(cpu_l)} samples) card vs CPU: "
+          f"{bad} differing samples")
+    if bad:
+        _fail(f"short song: card vs CPU {bad} differing samples")
+    phase_s = time.perf_counter() - t_phase
+    print(f"audio (c): the song phase took {phase_s:.1f} s {card}")
+    phase_done("audio: render_song vs AudioStream")
+
+    # ---- (d) times ----
+    chain = strm.SpuChain(song, dev)
+    t0 = time.perf_counter()
+    synth = strm.SongSynth(song, total, rate)
+    dry = synth.dry_chunk(0, total)
+    t_synth = time.perf_counter() - t0
+    split = {"host synth (s)": t_synth}
+    sync()
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+    evs[0].record()
+    lr = chain.to_device(*dry)
+    evs[1].record()
+    mixed = chain.gain_reverb(lr)
+    evs[2].record()
+    res = chain.resample(*mixed)
+    evs[3].record()
+    back = torch.stack(res).cpu()
+    evs[4].record()
+    sync()
+    for k, name in enumerate(("copy to the card", "gain + reverb kernel",
+                              "resampler kernel", "copy back")):
+        split[name + " (ms)"] = evs[k].elapsed_time(evs[k + 1])
+    if not np.array_equal(back[0].numpy(), osc_out[0]):
+        _fail("the split render differs from render_song")
+    print(f"audio (d): render_song of the {seconds:.0f} s song: "
+          f"{osc_wall:.3f} s wall (SoundFont, one channel: "
+          f"{font_wall:.3f} s); split " + ", ".join(
+              f"{k} {v:.3f}" for k, v in split.items()) + f" {card}")
+
+    st = strm.AudioStream(song, device=dev)
+    per_call = []
+    for _ in range(AUDIO_FRAMES):
+        t0 = time.perf_counter()
+        st.render_audio(1.0 / 60.0)
+        st.read(st.ring.available)
+        per_call.append(time.perf_counter() - t0)
+    per_call = np.asarray(per_call[1:]) * 1e3
+    rtf = (1000.0 / 60.0) / per_call.mean()
+    print(f"audio (d): render_audio(1/60) + read, {len(per_call)} calls "
+          f"after one warm-up: mean {per_call.mean():.3f} ms, median "
+          f"{np.median(per_call):.3f}, max {per_call.max():.3f}; real-time "
+          f"factor {rtf:.2f} (audio time / wall time) {card}")
+
+    for s in (1, AUDIO_WIDE):
+        x = torch.from_numpy((rng.standard_normal((s, AUDIO_CHUNK)) * 0.4)
+                             .astype(np.float32)).to(dev)
+        rst = rvb.init_state(dev, streams=s)
+        p = torch.from_numpy(np.repeat(rvb.preset_params(5)[None], s, 0)
+                             ).to(dev)
+        consts = rvb._scalars(wet, 1.0, 2.0)
+        ms_rvb = events_ms(lambda: rvb.spu_reverb(rst, x, x, p, *consts,
+                                                  True), AUDIO_REPS)
+        qst = rsp.init_state(dev, streams=s)
+        ms_rsp = events_ms(lambda: rsp.spu_resample(qst, x, x,
+                                                    rsp.PITCH_22K, True),
+                           AUDIO_REPS)
+        ticks = AUDIO_CHUNK // 2
+        print(f"audio (d): S={s}, {AUDIO_CHUNK}-sample chunk: spu_reverb "
+              f"{ms_rvb:.3f} ms ({ms_rvb * 1e6 / ticks:.1f} ns per "
+              f"22.05 kHz tick, {ms_rvb * 1e6 / ticks / s:.2f} ns per "
+              f"tick and stream), spu_resample {ms_rsp:.3f} ms "
+              f"({ms_rsp * 1e6 / AUDIO_CHUNK:.1f} ns per sample) {card}")
+
+    # the main path's shapes, kernel against twin: one 60 Hz frame, then
+    # a ragged 37-sample call with the state carried, (N,) inputs on an
+    # unbatched state updated in place, as SpuChain gives them
+    chunk = rate // 60
+    p_song = rvb.preset_params(song.reverb.preset)
+    wet_song = np.float32(song.reverb.wet / 127.0)
+    pitch = strm.resampler_pitch(song)
+    xs = torch.from_numpy((rng.standard_normal((2, chunk + 37)) * 0.4)
+                          .astype(np.float32)).to(dev)
+    sk, sp = rvb.init_state(dev), rvb.init_state(dev)
+    qk, qp = rsp.init_state(dev), rsp.init_state(dev)
+    bad = {"spu_reverb": 0, "spu_resample": 0}
+    worst = dict(bad)
+    for seg in (slice(0, chunk), slice(chunk, chunk + 37)):
+        sk, kl, kr = rvb.process(sk, xs[0, seg], xs[1, seg], p_song,
+                                 wet_song, inplace=True)
+        sp, pl, pr = rvb.process_ref(sp, xs[0, seg], xs[1, seg], p_song,
+                                     wet_song)
+        qk, ql, qr = rsp.process(qk, kl, kr, pitch, inplace=True)
+        qp, rl, rr = rsp.process_ref(qp, pl, pr, pitch)
+        sync()
+        for name, outs, states in (("spu_reverb", (kl, kr, pl, pr), (sk, sp)),
+                                   ("spu_resample", (ql, qr, rl, rr),
+                                    (qk, qp))):
+            a_l, a_r, b_l, b_r = outs
+            bad[name] += int((a_l != b_l).sum() + (a_r != b_r).sum())
+            bad[name] += sum(int((a != b).sum()) for a, b in zip(*states))
+            worst[name] = max(worst[name], float((a_l - b_l).abs().max()),
+                              float((a_r - b_r).abs().max()))
+    print(f"audio (d): at the main path's shapes (S=1, {chunk} then 37 "
+          f"samples, state carried): differing samples and state values "
+          f"{bad}")
+    if any(bad.values()):
+        _fail(f"kernels vs twins at the main path's shapes: {bad}")
+    for name in err:
+        err[name] = max(err[name], worst[name])
+
+    # the kernels' rows: the streamed chunk, S = 1, one 60 Hz frame
+    x = torch.from_numpy((rng.standard_normal((1, chunk)) * 0.4)
+                         .astype(np.float32)).to(dev)
+    p1 = torch.from_numpy(rvb.preset_params(song.reverb.preset)[None]
+                          ).to(dev)
+    rst = rvb.init_state(dev, streams=1)
+    ms = {"spu_reverb": events_ms(
+        lambda: rvb.spu_reverb(rst, x, x, p1, *rvb._scalars(wet, 1.0, 2.0),
+                               True), AUDIO_REPS)}
+    qst = rsp.init_state(dev, streams=1)
+    ms["spu_resample"] = events_ms(
+        lambda: rsp.spu_resample(qst, x, x, rsp.PITCH_22K, True),
+        AUDIO_REPS)
+    rst0 = rvb.init_state(dev, streams=1)
+    qst0 = rsp.init_state(dev, streams=1)
+    plain = {"spu_reverb": events_ms(
+        lambda: rvb.process_ref(rst0, x, x, p1, wet), 1),
+        "spu_resample": events_ms(
+            lambda: rsp.process_ref(qst0, x, x, rsp.PITCH_22K), 1)}
+    ticks = chunk // 2
+    reads, writes = _reverb_words(p1[0].cpu().numpy(), ticks)
+    io = 4 * chunk * 4                      # left, right in; two outs
+    by = {"spu_reverb": io + 4 * (reads + writes) + 4 * 32 + 2 * 8,
+          "spu_resample": io + 2 * 4 * (2 * 4 + 4)}
+    # operations: per tick 26 `mul_vol`s (multiply, shift, two clamps),
+    # 30 adds and subtractions, 34 addresses (add, mask), two Q15
+    # conversions (5); per sample the accumulator and the mix (8).  The
+    # resampler per sample: the averaging (4, and 6 more per push), the
+    # counter (4), two Gaussian sums (2 x 7 plus 8 table conversions), 4
+    # clamps.  Integer instructions counted at the f32 instruction rate.
+    ops = {"spu_reverb": ticks * (26 * 4 + 30 + 34 * 2 + 2 * 5) + chunk * 8,
+           "spu_resample": chunk * (4 + 4 + 2 * 7 + 8 + 4)
+           + (chunk // 2) * 6}
+    rows = []
+    for name, src_line in (("spu_reverb", f"{JAX_AUDIO}/reverb.py:195"),
+                           ("spu_resample",
+                            f"{JAX_AUDIO}/resampler.py:98")):
+        t_bytes = by[name] / HBM_BYTES_S * 1e3
+        t_ops = ops[name] / F32_OPS_S * 1e3
+        bound = max(t_bytes, t_ops)
+        print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain[name]:.3f} "
+              f"ms, bound {bound:.6f} ms "
+              f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
+              f"{by[name]} B, {ops[name]} operations) at S=1, {chunk} "
+              f"samples (one 60 Hz frame); a single stream is a serial "
+              f"chain the bound does not see: "
+              f"{ms[name] * 1e6 / (ticks if name == 'spu_reverb' else chunk):.1f}"
+              f" ns per {'22.05 kHz tick' if name == 'spu_reverb' else 'sample'}"
+              f" {card}")
+        rows.append({"name": name, "route": "cuda", "source": AUDIO_SRC,
+                     "replaces": src_line,
+                     "launches": stream_launches[name],
+                     "max_abs_err": err[name], "ms": ms[name],
+                     "plain_ms": plain[name], "bound_ms": bound,
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "library_ms": None,
+                     "counted_on": "AudioStream, 32 s song, 60 Hz and "
+                                   "ragged deltas"})
+    phase_done("audio: times")
+    return rows
 
 
 if __name__ == "__main__":

@@ -34,7 +34,11 @@ render_game_view (one `raster_sky` launch, the sky within one step)
 equal the CPU.  The editor path (torch code): every draw2d primitive,
 UiContext.paint with the icons, render_editor_viewport on the three
 editor levels (no raster kernel launched) and pick_triangle equal the
-CPU bit for bit.
+CPU bit for bit.  The audio path: csrc/audio.cu's `spu_reverb` (with
+square waves loud enough to wrap `_mul_vol`'s product) and
+`spu_resample` equal their twins on the card, output and state, over
+two calls; `render_song` and a 60 Hz `AudioStream` on the card equal
+the CPU render.
 """
 
 import numpy as np
@@ -1090,3 +1094,100 @@ def test_pick_triangle_matches_cpu(env):
     for a, b in zip(*out):
         assert torch.equal(a.cpu(), b)
     assert int(out[1][2].sum()) > 32
+
+
+# ---------------------------------------------------------------------------
+# the tracker's audio path: csrc/audio.cu's spu_reverb and spu_resample
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc")
+    return torch.device("cuda", 0)
+
+
+def _audio_noise(seed, shape, loud=False):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) * rng.uniform(0.05, 1.5, shape[:1] + (1,))
+    if loud:    # a +-1 square wave: `_mul_vol`'s product wraps
+        x[0] = np.where((np.arange(shape[1]) // 50) % 2 == 0, 1.0, -1.0)
+    return torch.from_numpy(x.astype(np.float32))
+
+
+@pytest.mark.parametrize("preset", [1, 4, 5, 6, 8])
+def test_spu_reverb_matches_twin(card, preset):
+    from bonnie32_tpu_torch.audio import reverb as rvb
+    left = _audio_noise(preset, (4, 600), loud=True).to(card)
+    right = _audio_noise(preset + 50, (4, 600), loud=True).to(card)
+    params = rvb.preset_params(preset)
+    st_k = rvb.init_state(card, streams=4)
+    st_p = rvb.init_state(card, streams=4)
+    before = rvb.spu_reverb.launches
+    for seg in (slice(0, 301), slice(301, 600)):
+        st_k, kl, kr = rvb.process(st_k, left[:, seg], right[:, seg],
+                                   params, 0.6)
+        st_p, pl, pr = rvb.process_ref(st_p, left[:, seg], right[:, seg],
+                                       params, 0.6)
+        assert torch.equal(kl, pl) and torch.equal(kr, pr)
+        for a, b in zip(st_k, st_p):
+            assert torch.equal(a, b)
+    assert rvb.spu_reverb.launches == before + 2
+    assert bool(st_k.buffer_l.any())
+
+
+@pytest.mark.parametrize("pitch", [0x0800, 0x0400, 0x0200])
+def test_spu_resample_matches_twin(card, pitch):
+    from bonnie32_tpu_torch.audio import resampler as rsp
+    left = _audio_noise(pitch, (3, 900)).to(card)
+    right = _audio_noise(pitch + 1, (3, 900)).to(card)
+    st_k = rsp.init_state(card, streams=3)
+    st_p = rsp.init_state(card, streams=3)
+    for seg in (slice(0, 451), slice(451, 900)):
+        st_k, kl, kr = rsp.process(st_k, left[:, seg], right[:, seg], pitch)
+        st_p, pl, pr = rsp.process_ref(st_p, left[:, seg], right[:, seg],
+                                       pitch)
+        assert torch.equal(kl, pl) and torch.equal(kr, pr)
+        for a, b in zip(st_k, st_p):
+            assert torch.equal(a, b)
+
+
+def test_inplace_process_updates_the_given_state(card):
+    """SpuChain's calls: (N,) inputs on an unbatched state, `inplace`: the
+    kernels write the caller's tensors, with the results of the pure
+    call."""
+    from bonnie32_tpu_torch.audio import resampler as rsp
+    from bonnie32_tpu_torch.audio import reverb as rvb
+    x = _audio_noise(7, (2, 735), loud=True).to(card)
+    params = rvb.preset_params(5)
+    st = rvb.init_state(card)
+    ref = rvb.process(rvb.init_state(card), x[0], x[1], params, 0.6)
+    got = rvb.process(st, x[0], x[1], params, 0.6, inplace=True)
+    q = rsp.init_state(card)
+    qref = rsp.process(rsp.init_state(card), x[0], x[1], 0x0800)
+    qgot = rsp.process(q, x[0], x[1], 0x0800, inplace=True)
+    for given, out, want in ((st, got, ref), (q, qgot, qref)):
+        for a, b, c in zip(given, out[0], want[0]):
+            assert a.data_ptr() == b.data_ptr() and torch.equal(b, c)
+        assert torch.equal(out[1], want[1]) and torch.equal(out[2], want[2])
+    assert int(st.pos) == 367
+
+
+def test_render_song_and_stream_match_cpu(card):
+    from bonnie32_tpu_torch.audio import engine
+    from bonnie32_tpu_torch.audio import song as M
+    from bonnie32_tpu_torch.audio import stream as strm
+    song = ts.demo_song(M, patterns=1, rows=6, channels=5, bpm=1200,
+                        reverb=5, rate0=2, seed=3)
+    got = engine.render_song(song)          # the default device: the card
+    ref = engine.render_song(song, device="cpu")
+    for a, b in zip(got, ref):
+        np.testing.assert_array_equal(a, b)
+    st = strm.AudioStream(song)
+    assert st.chain.reverb_state.buffer_l.is_cuda
+    parts = []
+    while st.position < st.total:
+        st.render_audio(1 / 60)
+        parts.append(st.read(st.ring.available)[0])
+    np.testing.assert_array_equal(np.concatenate(parts)[:len(ref[0])],
+                                  ref[0])

@@ -98,7 +98,7 @@ def test_every_cuda_source_has_a_loader_entry():
     from bonnie32_tpu_torch.ops import _cuda
     on_disk = sorted(p for p in PKG.rglob("*.cu"))
     assert sorted(_cuda.SOURCES.values()) == on_disk
-    assert sorted(_cuda.SOURCES) == ["gather", "raster"]
+    assert sorted(_cuda.SOURCES) == ["audio", "gather", "raster"]
     for name in _cuda.SOURCES:
         path = _cuda.library_path(name)
         assert path.parent == _cuda.BUILD_DIR

@@ -27,9 +27,16 @@ argument too, like the level module: each package parses the RON dict of
 its own Skybox class).  `transparent_open_air_level` glazes it like
 `transparent_cave_level`; with the night sky's stars that level takes the
 sky-buffer route.
+
+Audio: `build_sf2(S, ...)` and `sine_font(S)` write a SoundFont in memory
+(a jax-free copy of tests/golden/sf2_fixture.py, taking the sf2 module
+`S` for its generator opcodes); `demo_song(M, ...)` builds a tracker song
+from the song module `M`: one channel per oscillator family and more,
+seeded notes, a reverb preset and channel 0's sample rate.
 """
 
 import math
+import struct
 
 import numpy as np
 
@@ -420,3 +427,127 @@ def asset_level(L):
                                         asset_id=ASSET_ID, height=128.0,
                                         facing=0.7))
     return level
+
+
+# ---------------------------------------------------------------------------
+# audio: an in-memory SoundFont and a tracker song
+# ---------------------------------------------------------------------------
+
+def _riff_chunk(cid: bytes, payload: bytes) -> bytes:
+    pad = b"\0" if len(payload) & 1 else b""
+    return cid + struct.pack("<I", len(payload)) + payload + pad
+
+
+def _riff_list(list_type: bytes, payload: bytes) -> bytes:
+    return _riff_chunk(b"LIST", list_type + payload)
+
+
+def _name20(s: str) -> bytes:
+    return s.encode("ascii")[:19].ljust(20, b"\0")
+
+
+def build_sf2(S, samples: np.ndarray, sample_defs, presets) -> bytes:
+    """A spec-conformant RIFF sfbk: the int16 PCM pool `samples`;
+    sample_defs: dicts(name, start, end, start_loop, end_loop,
+    sample_rate, original_key, correction); presets: dicts(name, bank,
+    patch, zones), each zone a dict of generator opcode (of the sf2
+    module `S`) -> amount plus 'sample' index, one instrument a preset."""
+    smpl = samples.astype("<i2").tobytes()
+    phdr = pbag = pgen = inst = ibag = igen = b""
+    for i, p in enumerate(presets):
+        phdr += _name20(p["name"]) + struct.pack(
+            "<HHHIII", p["patch"], p["bank"], i, 0, 0, 0)
+        pbag += struct.pack("<HH", len(pgen) // 4, 0)
+        pgen += struct.pack("<Hh", S.G_INSTRUMENT, i)
+    phdr += _name20("EOP") + struct.pack("<HHHIII", 0, 0, len(presets), 0,
+                                         0, 0)
+    pbag += struct.pack("<HH", len(pgen) // 4, 0)
+    for p in presets:
+        inst += _name20(p["name"] + "-i") + struct.pack("<H", len(ibag) // 4)
+        for zone in p["zones"]:
+            ibag += struct.pack("<HH", len(igen) // 4, 0)
+            items = [(k, v) for k, v in zone.items() if k != "sample"]
+            # keyRange first, sampleID last (spec 8.1.2)
+            items.sort(key=lambda kv: (kv[0] != S.G_KEY_RANGE,))
+            for oper, amount in items:
+                igen += struct.pack("<Hh", oper, struct.unpack(
+                    "<h", struct.pack("<H", amount & 0xFFFF))[0])
+            igen += struct.pack("<Hh", S.G_SAMPLE_ID, zone["sample"])
+    inst += _name20("EOI") + struct.pack("<H", len(ibag) // 4)
+    ibag += struct.pack("<HH", len(igen) // 4, 0)
+    shdr = b""
+    for sd in sample_defs:
+        shdr += _name20(sd["name"]) + struct.pack(
+            "<IIIIIBbHH", sd["start"], sd["end"], sd["start_loop"],
+            sd["end_loop"], sd["sample_rate"], sd["original_key"],
+            sd.get("correction", 0), 0, 1)
+    shdr += _name20("EOS") + struct.pack("<IIIIIBbHH", *[0] * 9)
+    info = (_riff_chunk(b"ifil", struct.pack("<HH", 2, 1))
+            + _riff_chunk(b"isng", b"EMU8000\0")
+            + _riff_chunk(b"INAM", b"test-font\0"))
+    pdta = b"".join(_riff_chunk(cid, body) for cid, body in (
+        (b"phdr", phdr), (b"pbag", pbag), (b"pmod", b"\0" * 10),
+        (b"pgen", pgen), (b"inst", inst), (b"ibag", ibag),
+        (b"imod", b"\0" * 10), (b"igen", igen), (b"shdr", shdr)))
+    body = (_riff_list(b"INFO", info)
+            + _riff_list(b"sdta", _riff_chunk(b"smpl", smpl))
+            + _riff_list(b"pdta", pdta))
+    return _riff_chunk(b"RIFF", b"sfbk" + body)
+
+
+def sine_font(S, n: int = 2048, rate: int = 44100, root: int = 60,
+              loop: bool = True) -> bytes:
+    """One looping sine sample across the full key range, preset 0:0
+    (tests/golden/sf2_fixture.py `sine_font`, byte for byte)."""
+    t = np.arange(n)
+    wave = (np.sin(2 * np.pi * 32 * t / n) * 20000).astype(np.int16)
+    zone = {S.G_KEY_RANGE: 0 | (127 << 8),
+            S.G_SAMPLE_MODES: 1 if loop else 0, "sample": 0}
+    return build_sf2(
+        S, wave,
+        [dict(name="sine", start=0, end=n, start_loop=0, end_loop=n,
+              sample_rate=rate, original_key=root)],
+        [dict(name="sinepre", bank=0, patch=0, zones=[zone])])
+
+
+# GM programs whose oscillator families (stream._program_wave) are
+# triangle, sine, saw, square, noise, then three more
+DEMO_PROGRAMS = (0, 10, 30, 60, 110, 5, 40, 80)
+
+
+def demo_song(M, patterns: int = 1, rows: int = 16, channels: int = 5,
+              bpm: int = 120, reverb: int = 2, wet: int = 80,
+              rate0: int = 0, seed: int = 0):
+    """A song of the song module `M`: `patterns` patterns of `rows` rows
+    played in order, `channels` channels whose programs run through
+    DEMO_PROGRAMS (every oscillator family from five channels on), a note
+    on every row with probability 0.4 (seeded), some with a volume or an
+    instrument change, channel pans and expressions spread, reverb
+    preset `reverb` at wet `wet`, and channel 0's sample-rate setting
+    `rate0` (2: 22 kHz, so the resampler runs)."""
+    rng = np.random.default_rng(seed)
+    progs = [DEMO_PROGRAMS[c % len(DEMO_PROGRAMS)] for c in range(channels)]
+    pats = []
+    for _ in range(patterns):
+        pat = M.Pattern.new(rows, channels)
+        for c in range(channels):
+            for r in range(rows):
+                if r and rng.random() >= 0.4:
+                    continue
+                vol = int(rng.integers(60, 128)) if rng.random() < 0.5 \
+                    else None
+                inst = progs[c] if rng.random() < 0.2 else None
+                pat.channels[c][r] = M.Note(
+                    pitch=int(rng.integers(36, 85)), instrument=inst,
+                    volume=vol)
+        pats.append(pat)
+    settings = [M.ChannelSettings(pan=int(p), expression=int(e))
+                for p, e in zip(rng.integers(0, 128, channels),
+                                rng.integers(90, 128, channels))]
+    settings[0].sample_rate = rate0
+    song = M.Song(name="demo", bpm=bpm, patterns=pats,
+                  arrangement=list(range(patterns)),
+                  channel_instruments=progs, channel_settings=settings)
+    song.reverb.preset = reverb
+    song.reverb.wet = wet
+    return song
