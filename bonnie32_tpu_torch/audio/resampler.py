@@ -6,10 +6,12 @@ rate, then re-interpolate at 44.1 kHz with the hardware's 512-entry
 Gaussian ROM indexed by bits 4-11 of the pitch counter — the
 characteristic warm/muffled PS1 sound.
 
-A sequential recurrence per stream; streams are batched on a leading
-axis as in audio/reverb.py.  `process` runs the hand-written kernel
-`spu_resample` of csrc/audio.cu for CUDA tensors and the plain twin
-`process_ref` for CPU tensors.
+A recurrence per stream in the JAX package, but nothing chains through
+the data except each averaging block's sum, so the kernel and its twin
+compute every sample at once (`process_ref` says how); streams are
+batched on a leading axis as in audio/reverb.py.  `process` runs the
+hand-written kernel `spu_resample` of csrc/audio.cu for CUDA tensors and
+the plain twin `process_ref` for CPU tensors.
 """
 
 from typing import NamedTuple, Tuple
@@ -27,6 +29,7 @@ PITCH_NATIVE = 0x1000
 PITCH_22K = 0x0800
 PITCH_11K = 0x0400
 PITCH_5K = 0x0200
+SEGMENT = 1024     # samples a block of the kernel (csrc/audio.cu kSegment)
 
 
 class ResamplerState(NamedTuple):
@@ -61,59 +64,89 @@ def process_ref(state: ResamplerState, left, right, pitch: int,
                 enabled=True) -> Tuple[ResamplerState, torch.Tensor,
                                        torch.Tensor]:
     """The plain twin of `spu_resample` (resampler.py:58-102 of the JAX
-    package), a Python loop over samples, every stream at once.  Returns
-    (new_state, left_out, right_out); `state` is not changed."""
+    package), every sample of every stream at once, as the kernel splits
+    it.  Returns (new_state, left_out, right_out); `state` is not changed.
+
+    Nothing chains through the data but each block's sum.  The carried
+    count c0 fixes where blocks end: the first push falls on sample
+    p0 = max(0, ratio - c0 - 1) (on the first sample, with count c0 + 1,
+    where the caller changed the pitch and c0 >= ratio), the k-th on
+    p0 + k * ratio.  Each block's average is its samples summed in order
+    (the first from the carried sums), over its count, clipped; sample i
+    reads the four newest averages pushed up to it (the carried history
+    fills the first), and its Gaussian index is bits 4-11 of
+    pc0 + (i + 1) * pitch, which the counter's `& 0xFFF` never changes.
+    """
     if _passes(pitch):
         dev = state.history_l.device
         return (state, torch.as_tensor(left, dtype=_F32, device=dev),
                 torch.as_tensor(right, dtype=_F32, device=dev))
     state, left, right, single = _streams.batched(state, left, right)
+    if left.shape[1] == 0:
+        new = ResamplerState(*(t.clone() for t in state))
+        return _streams.unbatched(new, left.clone(), right.clone(), single)
     dev = left.device
+    streams, n = left.shape
     ratio = PITCH_NATIVE // pitch
     table = torch.tensor(GAUSSIAN_TABLE, dtype=_I32, device=dev)
     div = torch.tensor(32768.0, dtype=_F32, device=dev)
 
-    def gauss(h, idx):
-        """audio.rs:252-268: taps [0xFF-i], [0x1FF-i], [0x100+i], [i]."""
-        g0 = table[0xFF - idx].to(_F32)
-        g1 = table[0x1FF - idx].to(_F32)
-        g2 = table[0x100 + idx].to(_F32)
-        g3 = table[idx].to(_F32)
-        return (g0 * h[:, 0] + g1 * h[:, 1] + g2 * h[:, 2]
-                + g3 * h[:, 3]) / div
+    c0 = state.accum_count.long()[:, None]                  # (S, 1)
+    first = torch.clamp(ratio - c0 - 1, min=0)
+    # blocks 0 .. K-1 end on p0 + k * ratio; the one after the last push
+    # is the call's tail, cut at n
+    blocks = torch.arange((n - 1) // ratio + 2, device=dev)
+    ends = first + blocks * ratio                           # (S, K)
+    pushes = torch.where(first < n, (n - 1 - first) // ratio + 1, 0)
+    count = torch.where(blocks == 0, c0 + first + 1, ratio)
+    sums = []
+    for x, carried in ((left, state.accum_l), (right, state.accum_r)):
+        acc = torch.where(blocks == 0, carried[:, None], 0.0)
+        for j in range(ratio):
+            at = ends - (ratio - 1) + j
+            live = (at >= 0) & (at < n)
+            acc = torch.where(live, acc + torch.gather(
+                x, 1, at.clamp(0, n - 1)), acc)
+        sums.append(acc)
+    cnt = count.to(_F32)
 
-    hl, hr = state.history_l.clone(), state.history_r.clone()
-    pc = state.pitch_counter.clone()
-    al, ar = state.accum_l.clone(), state.accum_r.clone()
-    ac = state.accum_count.clone()
-    out_l = torch.empty_like(left)
-    out_r = torch.empty_like(right)
-    for i in range(left.shape[1]):
-        l, r = left[:, i], right[:, i]
-        al = al + l
-        ar = ar + r
-        ac = ac + 1
-        push = ac >= ratio
-        cnt = ac.to(_F32)
-        avg_l = torch.clamp(al / cnt, -1.5, 1.5)
-        avg_r = torch.clamp(ar / cnt, -1.5, 1.5)
-        hl = torch.where(push[:, None],
-                         torch.cat([hl[:, 1:], avg_l[:, None]], 1), hl)
-        hr = torch.where(push[:, None],
-                         torch.cat([hr[:, 1:], avg_r[:, None]], 1), hr)
-        al = torch.where(push, torch.zeros_like(al), al)
-        ar = torch.where(push, torch.zeros_like(ar), ar)
-        ac = torch.where(push, torch.zeros_like(ac), ac)
+    def history(h, total):
+        """The carried history, then every block's average."""
+        return torch.cat([h, torch.clamp(total / cnt, -1.5, 1.5)], 1)
 
-        pc = pc + pitch
-        idx = ((pc >> 4) & 0xFF).long()
-        o_l = torch.clamp(gauss(hl, idx), -1.5, 1.5)
-        o_r = torch.clamp(gauss(hr, idx), -1.5, 1.5)
-        pc = torch.where(pc >= 0x1000, pc & 0xFFF, pc)
-        out_l[:, i] = o_l if enabled else l
-        out_r[:, i] = o_r if enabled else r
-    new = ResamplerState(history_l=hl, history_r=hr, pitch_counter=pc,
-                         accum_l=al, accum_r=ar, accum_count=ac)
+    seq_l = history(state.history_l, sums[0])
+    seq_r = history(state.history_r, sums[1])
+    i = torch.arange(n, device=dev)
+    newest = torch.where(i >= first, (i - first) // ratio + 1, 0)  # (S, N)
+    pc = state.pitch_counter.long()[:, None]
+    idx = ((pc + (i + 1) * pitch) >> 4) & 0xFF
+    g0 = table[0xFF - idx].to(_F32)
+    g1 = table[0x1FF - idx].to(_F32)
+    g2 = table[0x100 + idx].to(_F32)
+    g3 = table[idx].to(_F32)
+
+    def gauss(seq):
+        """audio.rs:252-268: taps [0xFF-i], [0x1FF-i], [0x100+i], [i]
+        over the four newest averages, oldest first."""
+        s0, s1, s2, s3 = (torch.gather(seq, 1, newest + k) for k in range(4))
+        return torch.clamp((g0 * s0 + g1 * s1 + g2 * s2 + g3 * s3) / div,
+                           -1.5, 1.5)
+
+    out_l = gauss(seq_l) if enabled else left.clone()
+    out_r = gauss(seq_r) if enabled else right.clone()
+    last = pushes + torch.arange(4, device=dev)             # (S, 4)
+    tail = pushes                                           # block index
+    final = pc[:, 0] + n * pitch
+    new = ResamplerState(
+        history_l=torch.gather(seq_l, 1, last),
+        history_r=torch.gather(seq_r, 1, last),
+        pitch_counter=torch.where(final >= 0x1000, final & 0xFFF,
+                                  final).to(_I32),
+        accum_l=torch.gather(sums[0], 1, tail)[:, 0],
+        accum_r=torch.gather(sums[1], 1, tail)[:, 0],
+        accum_count=torch.where(
+            pushes[:, 0] == 0, c0[:, 0] + n,
+            n - 1 - (first[:, 0] + (pushes[:, 0] - 1) * ratio)).to(_I32))
     return _streams.unbatched(new, out_l, out_r, single)
 
 
@@ -141,9 +174,14 @@ def spu_resample(state: ResamplerState, left, right, pitch: int,
                          dev),
             _cuda._check("left", left, _F32, (streams, n), dev),
             _cuda._check("right", right, _F32, (streams, n), dev)]
+    # a call over several segments finds its new state by a ticket
+    # counter a stream, which the kernel leaves at zero
+    tickets = (torch.zeros(streams, dtype=_I32, device=dev)
+               if n > SEGMENT else None)
     out = _streams.launch("spu_resample", args, left,
                           (int(pitch), PITCH_NATIVE // int(pitch),
-                           int(bool(enabled))))
+                           int(bool(enabled)),
+                           None if tickets is None else tickets.data_ptr()))
     spu_resample.launches += 1
     return out
 

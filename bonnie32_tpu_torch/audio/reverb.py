@@ -12,9 +12,12 @@ state whose tensors lead with S.  `process` runs the hand-written kernel
 `spu_reverb` of csrc/audio.cu for CUDA tensors and the plain twin
 `process_ref` (a loop over samples in tensor ops, one op per rounding)
 for CPU tensors.  Integer arithmetic is int32 as in the JAX package,
-whose multiply wraps: so does this one's (`_mul_vol`).
+whose multiply wraps: so does this one's (`_mul_vol`).  The kernel runs
+a stream's ticks over windows of its buffers staged in shared memory;
+`window_layout` says where each tick's words lie there.
 """
 
+import weakref
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -227,16 +230,203 @@ def process_ref(state: ReverbState, left, right, reverb_type_params,
     return _streams.unbatched(new, out_l, out_r, single)
 
 
+# The kernel's window: at most WINDOW 22.05 kHz ticks and WINDOW_SAMPLES
+# samples a pass over shared memory (one 60 Hz frame is 735 samples, 367
+# or 368 ticks, so a frame is one window).
+WINDOW = 368
+WINDOW_SAMPLES = 736
+SHARED_BYTES = 227 * 1024      # a block's shared memory on the H100
+LAYOUT_WORDS = 5 + 2 * 14 + 2 * 14 * 4
+
+# Every access of one tick to one side's buffer, in the slot order of
+# csrc/audio.cu's `Slot`: (register, subtracted register or a constant,
+# writes).  A read of `(m - d) & 0xFFFF` names m and d; a plain read or
+# write names its register alone.
+_SIDE_ACCESS = (("d_{s}_same", None, False), ("m_{s}_same", 2, False),
+                ("m_{s}_same", None, True), ("m_{s}_diff", 2, False),
+                ("m_{s}_diff", None, True), ("d_{s}_diff", None, False),
+                ("m_{s}_comb1", None, False), ("m_{s}_comb2", None, False),
+                ("m_{s}_comb3", None, False), ("m_{s}_comb4", None, False),
+                ("m_{s}_apf1", "d_apf1", False), ("m_{s}_apf1", None, True),
+                ("m_{s}_apf2", "d_apf2", False), ("m_{s}_apf2", None, True))
+# The writes of its own side that a tick makes before each read, in the
+# JAX order (reverb.py:93-164): slot -> earlier write slots, per side
+# (the right side reads d_r_diff before it writes m_r_diff).
+_SAME, _DIFF, _APF1 = 2, 4, 11
+_EARLIER_WRITES = tuple(
+    {3: (_SAME,), 5: (_SAME,) + ((_DIFF,) if side == 0 else ()),
+     **{c: (_SAME, _DIFF) for c in (6, 7, 8, 9)}, 10: (_SAME, _DIFF),
+     12: (_SAME, _DIFF, _APF1)} for side in range(2))
+
+
+class WindowLayout(NamedTuple):
+    """Where a window of `window` ticks finds each word in shared memory,
+    per side (0: buffer_l, 1: buffer_r).  The access of slot k at tick t
+    addresses buffer word (pos + offsets[side, k] + t) % BUFFER_SIZE and
+    shared word slots[side, k] + t; `runs[side]` are the (start offset
+    from pos, length, shared base, written) of the merged runs staged
+    there, `words[side]` their total length.  `paired`: no read finds a
+    word that its own tick wrote before it or that the tick before wrote,
+    so two ticks can load all their words before either stores."""
+    window: int
+    offsets: np.ndarray     # (2, 14) int64, in [0, BUFFER_SIZE)
+    slots: np.ndarray       # (2, 14) int64
+    runs: tuple
+    words: np.ndarray       # (2,) int64
+    paired: bool
+
+
+def side_offsets(params) -> np.ndarray:
+    """The 14 accesses of a tick to each side's buffer as offsets from
+    pos, modulo BUFFER_SIZE, in `_SIDE_ACCESS` order: (2, 14) int64."""
+    p = np.asarray(params, np.int64)
+    out = np.zeros((2, len(_SIDE_ACCESS)), np.int64)
+    for side, name in enumerate("lr"):
+        for k, (reg, sub, _) in enumerate(_SIDE_ACCESS):
+            v = int(p[_IDX[reg.format(s=name)]])
+            if sub is not None:
+                d = sub if isinstance(sub, int) else int(p[_IDX[sub]])
+                v = (v - d) & 0xFFFF
+            out[side, k] = v % BUFFER_SIZE
+    return out
+
+
+def window_layout(params, window: int = WINDOW) -> WindowLayout:
+    """The shared-memory layout of a window of `window` ticks for one row
+    of the 32 registers.  Each offset o covers the words [o, o + window)
+    from the window's first pos; offsets whose ranges overlap merge into
+    one run, so two accesses reach the same buffer word within the
+    window exactly when they reach the same shared word.  Runs wrap
+    modulo BUFFER_SIZE."""
+    if not 0 < window <= BUFFER_SIZE // (2 * len(_SIDE_ACCESS)):
+        raise ValueError(f"window {window}: expected 1 .. "
+                         f"{BUFFER_SIZE // (2 * len(_SIDE_ACCESS))}")
+    offsets = side_offsets(params)
+    slots = np.zeros_like(offsets)
+    runs, words = [], np.zeros(2, np.int64)
+    for side in range(2):
+        uniq = sorted(set(int(o) for o in offsets[side]))
+        # start after a gap of at least `window` (one exists: at most 14
+        # offsets share BUFFER_SIZE words), so no run crosses the cut
+        gaps = [(uniq[(i + 1) % len(uniq)] - uniq[i]) % BUFFER_SIZE
+                or BUFFER_SIZE for i in range(len(uniq))]
+        cut = next(i for i, g in enumerate(gaps) if g >= window)
+        line = [uniq[(cut + 1 + i) % len(uniq)] for i in range(len(uniq))]
+        line = [v + BUFFER_SIZE * (v < line[0]) for v in line]
+        merged = []                     # [first offset, end] unwrapped
+        for v in line:
+            if merged and v < merged[-1][1]:
+                merged[-1][1] = v + window
+            else:
+                merged.append([v, v + window])
+        side_runs, base = [], 0
+        for lo, hi in merged:
+            writes = False
+            for k, (_, _, w) in enumerate(_SIDE_ACCESS):
+                u = int(offsets[side, k])
+                u += BUFFER_SIZE * (u < line[0])
+                if lo <= u < hi:
+                    slots[side, k] = base + u - lo
+                    writes |= w
+            side_runs.append((lo % BUFFER_SIZE, hi - lo, base, writes))
+            base += hi - lo
+        runs.append(tuple(side_runs))
+        words[side] = base
+    return WindowLayout(window, offsets, slots, tuple(runs), words,
+                        _paired(slots))
+
+
+def _paired(slots) -> bool:
+    """Whether no read of a tick reaches a word written earlier in the
+    same tick (same slot) or in the tick before (its slot one below the
+    write's)."""
+    for side in range(2):
+        for k, (_, _, writes) in enumerate(_SIDE_ACCESS):
+            if writes:
+                continue
+            for w in (j for j, a in enumerate(_SIDE_ACCESS) if a[2]):
+                gap = slots[side, w] - slots[side, k]
+                if gap == 1 or (gap == 0
+                                and w in _EARLIER_WRITES[side].get(k, ())):
+                    return False
+    return True
+
+
+def layout_table(layout: WindowLayout) -> np.ndarray:
+    """The kernel's int32 table of a layout (LAYOUT_WORDS,): the shared
+    words of each side, their numbers of runs, `paired`, the 14 slots of
+    each side, then each side's runs as (start, length, base, written),
+    14 places a side."""
+    t = np.zeros(LAYOUT_WORDS, np.int32)
+    t[0:2] = layout.words
+    t[2:4] = [len(r) for r in layout.runs]
+    t[4] = layout.paired
+    t[5:33] = layout.slots.reshape(-1)
+    for side, side_runs in enumerate(layout.runs):
+        at = 33 + side * 14 * 4
+        for r, run in enumerate(side_runs):
+            t[at + 4 * r:at + 4 * r + 4] = run
+    return t
+
+
+def shared_bytes(words_l: int, words_r: int) -> int:
+    """The kernel's dynamic shared memory for one stream's layout: both
+    sides' runs, three words a sample of the window (its two inputs and
+    its tick) and three a tick (its sample and its two outputs)."""
+    return 4 * (int(words_l) + int(words_r) + 3 * WINDOW_SAMPLES
+                + 3 * WINDOW)
+
+
+class WindowTables(NamedTuple):
+    """The kernel's layouts of one call's rows."""
+    table: torch.Tensor     # (S, LAYOUT_WORDS) int32, on the rows' device
+    shared_bytes: int       # the largest row's `shared_bytes`
+
+
+_tables = {}    # id(params tensor) -> (weakref, version, shape, tables)
+
+
+def _layout_tables(params, p) -> WindowTables:
+    """The window layouts, on `p`'s device, of the register rows `p`
+    (S, 32) that the caller gave as `params`: a tensor (`stream.SpuChain`
+    gives the same one every call) is read to the host once and its
+    tables kept while it lives unchanged; other rows are laid out from
+    their values.  One layout per distinct row."""
+    key = id(params)
+    if isinstance(params, torch.Tensor):
+        hit = _tables.get(key)
+        if (hit is not None and hit[0]() is params
+                and hit[1] == params._version and hit[2] == p.shape
+                and hit[3].table.device == p.device):
+            return hit[3]
+    rows = (p.cpu().numpy() if isinstance(params, torch.Tensor)
+            else np.broadcast_to(np.asarray(params, np.int32), p.shape))
+    distinct, which = np.unique(rows, axis=0, return_inverse=True)
+    tables = np.stack([layout_table(window_layout(r)) for r in distinct])
+    out = WindowTables(
+        torch.from_numpy(tables[which.reshape(-1)]).to(p.device),
+        max(shared_bytes(*t[0:2]) for t in tables))
+    if isinstance(params, torch.Tensor):
+        for k in [k for k, v in _tables.items() if v[0]() is None]:
+            del _tables[k]
+        _tables[key] = (weakref.ref(params), params._version, p.shape, out)
+    return out
+
+
 def spu_reverb(state: ReverbState, left, right, params, wet, dry, vol, inc,
-               enabled: bool):
+               enabled: bool, layouts=None):
     """Launch the `spu_reverb` kernel of csrc/audio.cu: batched state
     tensors ((S, BUFFER_SIZE) i32 buffers, (S,) i32 pos, (S,) f32 accum)
     are updated IN PLACE; left/right (S, N) f32 and params (S, 32) i32 on
     the same card; wet, dry, vol and inc are the f32 constants of
-    `_scalars`.  Returns the outputs (out_l, out_r), (S, N) f32."""
+    `_scalars`.  `layouts`: the rows' `WindowTables` on the card
+    (default: laid out here, kept while `params` lives unchanged).
+    Returns the outputs (out_l, out_r), (S, N) f32."""
     from ..ops import _cuda
     dev = left.device
     streams, n = left.shape
+    if layouts is None:
+        layouts = _layout_tables(params, params)
     args = [_cuda._check("buffer_l", state.buffer_l, _I32,
                          (streams, BUFFER_SIZE), dev),
             _cuda._check("buffer_r", state.buffer_r, _I32,
@@ -244,11 +434,14 @@ def spu_reverb(state: ReverbState, left, right, params, wet, dry, vol, inc,
             _cuda._check("pos", state.pos, _I32, (streams,), dev),
             _cuda._check("accum", state.accum, _F32, (streams,), dev),
             _cuda._check("params", params, _I32, (streams, N_PARAMS), dev),
+            _cuda._check("layouts", layouts.table, _I32,
+                         (streams, LAYOUT_WORDS), dev),
             _cuda._check("left", left, _F32, (streams, n), dev),
             _cuda._check("right", right, _F32, (streams, n), dev)]
     out = _streams.launch("spu_reverb", args, left,
                           (float(wet), float(dry), float(vol), float(inc),
-                           int(bool(enabled))))
+                           int(bool(enabled)), WINDOW, WINDOW_SAMPLES,
+                           layouts.shared_bytes))
     spu_reverb.launches += 1
     return out
 
@@ -285,5 +478,6 @@ def process(state: ReverbState, left, right, reverb_type_params,
         st = ReverbState(*(t.clone() for t in st))
     out_l, out_r = spu_reverb(st, left, right, p,
                               *_scalars(wet_level, output_volume,
-                                        rate_ratio), bool(enabled))
+                                        rate_ratio), bool(enabled),
+                              _layout_tables(reverb_type_params, p))
     return _streams.unbatched(st, out_l, out_r, single)

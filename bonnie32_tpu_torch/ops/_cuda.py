@@ -195,9 +195,10 @@ def load(name: str = "raster"):
                 lib.select_gather.restype = i32
             else:
                 f32 = ctypes.c_float
-                lib.spu_reverb.argtypes = ([ptr] * 9 + [i32] * 2
-                                           + [f32] * 4 + [i32, ptr])
-                lib.spu_resample.argtypes = [ptr] * 10 + [i32] * 5 + [ptr]
+                lib.spu_reverb.argtypes = ([ptr] * 10 + [i32] * 2
+                                           + [f32] * 4 + [i32] * 4 + [ptr])
+                lib.spu_resample.argtypes = ([ptr] * 10 + [i32] * 5
+                                             + [ptr] * 2)
                 lib.spu_reverb.restype = lib.spu_resample.restype = i32
             _libs[name] = lib
     return _libs[name]

@@ -97,10 +97,13 @@ the JAX package.  In order:
      differing pixels or values, with their times;
   8. the tracker's audio path (`run_audio`): the SPU reverb
      (`spu_reverb`) and the Gaussian resampler (`spu_resample`) of
-     csrc/audio.cu against their twins on every preset and pitch, a 32 s
+     csrc/audio.cu against their twins on every preset and pitch (the
+     reverb also on all ten presets from pre-filled buffers across the
+     wrap, the resampler on short calls and across pitch changes), a 32 s
      8-channel song rendered by `render_song` and streamed by
      `AudioStream.render_audio` (60 Hz and ragged deltas), bit for bit,
-     through the oscillators and through a SoundFont, and their times.
+     through the oscillators and through a SoundFont, and their times,
+     with the reverb's bound seeing its serial chain.
 
 ptxas' register count of every kernel instantiation is printed as one
 JSON object after the build.  The last two lines of standard output are
@@ -135,6 +138,8 @@ N_PLAY8 = 128          # the 8-bit pipeline's batch
 N_SKY_EXACT = 8        # the exact sky mesh walk's batch
 N_ECS = 1024           # instances of the ECS systems
 ECS_CAPACITY = 16      # entity slots an instance
+N_TICK_DRIFT = 64      # instances of the card-vs-CPU tick check
+TICK_DRIFT_FRAMES = 300
 EDITOR_SIZES = ((640, 480), (320, 240))   # the editor view's sizes
 N_PICK_RAYS = 64       # seeded rays of the pick_triangle check
 AUDIO_STREAMS = 8      # seeded streams a preset / pitch, kernel vs twin
@@ -149,6 +154,11 @@ AUDIO_FRAMES = 121     # render_audio(1/60) calls timed (first not counted)
 AUDIO_CHUNK = 4096     # samples a kernel call in the S=1 / S=64 times
 AUDIO_WIDE = 64        # streams of the wide kernel time
 AUDIO_REPS = 5         # timed kernel calls
+WRAP_STREAMS = 64      # streams of the reverb check across the wrap
+WRAP_LENGTHS = (1, 37, 735, 4096)   # its calls, the state carried
+CHAIN_IIR = 8          # the IIR's dependent integer instructions a 2 ticks
+CHAIN_ACCUM = 3        # the accumulator's a sample: add, compare, subtract
+CHAIN_CYCLES = 4       # cycles a dependent instruction
 
 # The card's peaks (NVIDIA H100 SXM, at its 700 W limit).  The f32 rate
 # is that of uncontracted instructions: 132 SMs x 128 lanes x 1.98 GHz.
@@ -2005,7 +2015,15 @@ def run_play(dev, card, phase_done, reset_counts, read_counts):
       * ECS: combat_system, try_open_door, activate_checkpoint,
         collect_item, integrate_velocities and global_positions on
         N_ECS instances of ECS_CAPACITY random entities: every state
-        field and event lane equal to the CPU's.
+        field and event lane equal to the CPU's;
+      * the game tick: N_TICK_DRIFT instances on the Cave-size level,
+        the same seeded actions ticked (`step.tick`, `character_camera`)
+        on the card and on the CPU for TICK_DRIFT_FRAMES frames, each
+        from its own states (tests/torch_tick_drift.py): the values that
+        differ bit for bit and the largest difference per field after
+        frames 1, 3, 30 and 300; frames 1-3 within the CPU tick's
+        tolerance against the JAX package (integers exact, floats rtol
+        1e-5 / atol 1e-4), the later drift printed and held to nothing.
 
     Every time is CUDA events around the calls after a warm-up call,
     printed with the card's name and power limit."""
@@ -2346,6 +2364,24 @@ def run_play(dev, card, phase_done, reset_counts, read_counts):
     phase_done("play: ECS systems")
     print("play path, ms a call (CUDA events, after one warm-up call): "
           + ", ".join(f"{k} {v:.3f}" for k, v in times.items()) + f" {card}")
+
+    # ---- the card's game tick against the CPU's ----
+    import torch_tick_drift as td
+    from bonnie32_tpu_torch import rollout
+    tick_level = ts.cave_size_level(L)
+    sides = [(rollout.build_env(tick_level, ts.textures(), ts.resolver,
+                                device=d), d) for d in (dev, cpu)]
+    drift = td.tick_drift(tick_level, sides, N_TICK_DRIFT, TICK_DRIFT_FRAMES,
+                          SEED)
+    print(f"game tick, card vs CPU: N={N_TICK_DRIFT}, Cave-size level, "
+          f"seeded actions, each side from its own states:\n"
+          + td.summary(drift))
+    faults = td.held_faults(drift)
+    if faults:
+        _fail(f"the card's tick leaves the CPU's tolerance (rtol "
+              f"{td.RTOL}, atol {td.ATOL}, integers exact) on frames "
+              f"1-{td.HELD}: {faults}")
+    phase_done("play: the card's tick vs the CPU's")
 
 
 
@@ -2745,11 +2781,17 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
           all nine presets x AUDIO_STREAMS seeded streams (noise at
           levels from quiet to clipping, and square waves loud enough
           that `_mul_vol`'s product wraps) in one batched call of
-          AUDIO_CHECK samples, the state carried into a second: 0
-          differing output samples, buffer words, pos and accum;
+          AUDIO_CHECK samples, the state carried into a second; then all
+          ten presets (OFF too) from buffers of seeded int16 words at pos
+          0x20000 - 300, so that windows straddle the wrap and far reads
+          return words, calls of WRAP_LENGTHS samples with the state
+          carried, at S = WRAP_STREAMS and at S = 1 (each preset alone):
+          0 differing output samples, buffer words, pos and accum;
       (b) `spu_resample` against `resampler.process_ref` at pitches
           0x0800, 0x0400 and 0x0200, AUDIO_STREAMS streams, two calls of
-          RESAMPLE_CHECK / 2 samples: 0 differing;
+          RESAMPLE_CHECK / 2 samples; then at each pitch calls of 1,
+          ratio - 1, 37, 735 and 4,096 samples and two at the next
+          pitch (a carried count may reach the new ratio): 0 differing;
       (c) a real-size song (tests/torch_scenes.py `demo_song`: 8 channels,
           4 patterns of 64 rows in order, 120 bpm at 4 rows a beat: 32 s,
           1,411,200 samples; channels 0-4 one per oscillator family,
@@ -2765,17 +2807,23 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
       (d) times: the song's render and its split (host synth, copy to
           the card, gain + reverb, resampler, copy back), the ms per
           render_audio(1/60) call and the real-time factor, and each
-          kernel's ms per AUDIO_CHUNK-sample chunk at S = 1 and S =
-          AUDIO_WIDE streams, with the ns per 22.05 kHz tick; then both
-          kernels against their twins at the main path's shapes (S = 1,
-          one 735-sample frame and a ragged 37-sample call, the state
-          carried and updated in place as SpuChain does): 0 differing.
+          kernel's ms at S = 1 x 735 samples (one 60 Hz frame), S = 1 x
+          AUDIO_CHUNK and S = AUDIO_WIDE x AUDIO_CHUNK, queued behind a
+          matrix product (a call shorter than its wrapper's host time is
+          timed on the card), with the ns per 22.05 kHz tick and per
+          sample; then both kernels against their twins at the main
+          path's shapes (S = 1, one 735-sample frame and a ragged
+          37-sample call, the state carried and updated in place as
+          SpuChain does): 0 differing.
 
     Returns the two kernels' rows of the `kernels` line: ms and plain ms
     at the streamed chunk (S = 1, one 60 Hz frame of 735 samples), the
     launches of the streamed run, the largest difference from the twin
-    over (a), (b) and the main path's shapes, the bound from the bytes
-    that chunk must move (`_reverb_words`)."""
+    over (a), (b) and the main path's shapes, and the bound: the largest
+    of the bytes that chunk must move (`_reverb_words`), its operations
+    and, for the reverb, its chain (the longest loop-carried path of one
+    stream at CHAIN_CYCLES a dependent instruction and the card's top SM
+    clock), `bound_by` naming which."""
     import time
 
     import numpy as np
@@ -2798,12 +2846,18 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
         if dev.type == "cuda":
             torch.cuda.synchronize()
 
-    def events_ms(fn, reps):
+    ballast = torch.ones((4096, 4096), device=dev)
+
+    def events_ms(fn, reps, queued=False):
         """fn() once untimed, then `reps` calls between CUDA events: ms
-        a call."""
+        a call.  `queued`: the calls wait behind a matrix product, so that
+        all are enqueued before the first runs and a kernel shorter than
+        its wrapper's host time is timed on the card."""
         fn()
         evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         sync()
+        if queued:
+            torch.matmul(ballast, ballast)
         evs[0].record()
         for _ in range(reps):
             fn()
@@ -2851,6 +2905,73 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
     if any(diffs.values()) or not bool(st_k.buffer_l.any()):
         _fail(f"spu_reverb disagrees with its twin: {diffs}")
     err["spu_reverb"] = worst
+
+    # all ten presets from buffers of seeded int16 words, pos 300 words
+    # before the wrap, calls of WRAP_LENGTHS samples with the state
+    # carried: WRAP_STREAMS streams in one batched call (stream k plays
+    # preset k % 10), and streams 0-9 each alone (S = 1), both against
+    # the twin's batched rows
+    s_w = WRAP_STREAMS
+    n_w = sum(WRAP_LENGTHS)
+    params_w = np.stack([rvb.preset_params(k % 10) for k in range(s_w)])
+    words = rng.integers(-32768, 32768, (2, s_w, rvb.BUFFER_SIZE)
+                         ).astype(np.int32)
+    sigma = rng.uniform(0.02, 1.5, (s_w, 1))
+    xw = (rng.standard_normal((2, s_w, n_w)) * sigma).astype(np.float32)
+    xw[0, 10:20] = np.where((np.arange(n_w) // 50) % 2 == 0, 1.0, -1.0)
+    xw[1, 10:20] = -xw[0, 10:20]              # loud: one stream a preset
+    xw_dev = torch.from_numpy(xw).to(dev)
+
+    def wrap_state(rows):
+        return rvb.ReverbState(
+            buffer_l=torch.from_numpy(words[0, rows]).to(dev),
+            buffer_r=torch.from_numpy(words[1, rows]).to(dev),
+            pos=torch.full((len(rows),), rvb.BUFFER_SIZE - 300,
+                           dtype=torch.int32, device=dev),
+            accum=torch.full((len(rows),), 0.5, device=dev))
+
+    twin = wrap_state(list(range(s_w)))
+    wide = wrap_state(list(range(s_w)))
+    alone = [wrap_state([k]) for k in range(10)]
+    diffs = {"out": 0, "buffer words": 0, "pos": 0, "accum": 0}
+    worst = 0.0
+
+    def count(outs, ref_outs, st, ref_st):
+        nonlocal worst
+        for a, b in zip(outs, ref_outs):
+            diffs["out"] += int((a != b).sum())
+            worst = max(worst, float((a - b).abs().max()))
+        diffs["buffer words"] += int((st.buffer_l != ref_st.buffer_l).sum()
+                                     + (st.buffer_r != ref_st.buffer_r)
+                                     .sum())
+        diffs["pos"] += int((st.pos != ref_st.pos).sum())
+        diffs["accum"] += int((st.accum != ref_st.accum).sum())
+
+    a = 0
+    for ln in WRAP_LENGTHS:
+        seg = slice(a, a + ln)
+        lt, rt = xw_dev[0, :, seg], xw_dev[1, :, seg]
+        twin, pl, pr = rvb.process_ref(twin, lt, rt, params_w, wet)
+        wide, kl, kr = rvb.process(wide, lt, rt, params_w, wet, inplace=True)
+        count((kl, kr), (pl, pr), wide, twin)
+        for k in range(10):
+            alone[k], kl, kr = rvb.process(alone[k], lt[k:k + 1],
+                                           rt[k:k + 1], params_w[k], wet,
+                                           inplace=True)
+            count((kl, kr), (pl[k:k + 1], pr[k:k + 1]), alone[k],
+                  rvb.ReverbState(*(t[k:k + 1] for t in twin)))
+        a += ln
+    sync()
+    crossed = int((twin.pos < rvb.BUFFER_SIZE - 300).sum())
+    print(f"audio (a): spu_reverb vs process_ref, all ten presets from "
+          f"pre-filled buffers at pos {rvb.BUFFER_SIZE - 300:#x}, calls of "
+          f"{WRAP_LENGTHS} samples (state carried), S={s_w} and S=1 x 10: "
+          f"differing {diffs}, largest output difference {worst}; "
+          f"{crossed} of {s_w} streams crossed the wrap")
+    if any(diffs.values()) or crossed != s_w:
+        _fail(f"spu_reverb across the wrap disagrees with its twin: "
+              f"{diffs}, {crossed} streams crossed")
+    err["spu_reverb"] = max(err["spu_reverb"], worst)
     phase_done("audio: spu_reverb vs plain")
 
     # ---- (b) spu_resample vs its twin ----
@@ -2879,6 +3000,39 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
         if bad:
             _fail(f"spu_resample at pitch {pitch:#x} disagrees with its "
                   f"twin: {bad}")
+    # short and long calls at each pitch, then a pitch change (the count
+    # carried from a longer block can reach the new ratio)
+    pitches = (rsp.PITCH_22K, rsp.PITCH_11K, rsp.PITCH_5K)
+    for k, pitch in enumerate(pitches):
+        ratio = rsp.PITCH_NATIVE // pitch
+        after = pitches[(k + 1) % 3]
+        calls = [(n_, pitch) for n_ in (1, ratio - 1, 37, 735, 4096)]
+        calls += [(n_, after) for n_ in (37, 735)]
+        sig = (rng.standard_normal((2, AUDIO_STREAMS,
+                                    sum(n_ for n_, _ in calls)))
+               * 0.6).astype(np.float32)
+        sig_dev = torch.from_numpy(sig).to(dev)
+        st_k = rsp.init_state(dev, streams=AUDIO_STREAMS)
+        st_p = rsp.init_state(dev, streams=AUDIO_STREAMS)
+        bad, a = 0, 0
+        for n_, p_ in calls:
+            seg = slice(a, a + n_)
+            st_k, kl, kr = rsp.process(st_k, sig_dev[0, :, seg],
+                                       sig_dev[1, :, seg], p_, inplace=True)
+            st_p, pl, pr = rsp.process_ref(st_p, sig_dev[0, :, seg],
+                                           sig_dev[1, :, seg], p_)
+            bad += int((kl != pl).sum() + (kr != pr).sum())
+            bad += sum(int((x != y).sum()) for x, y in zip(st_k, st_p))
+            worst = max(worst, float((kl - pl).abs().max()),
+                        float((kr - pr).abs().max()))
+            a += n_
+        sync()
+        print(f"audio (b): spu_resample vs process_ref, pitch {pitch:#06x} "
+              f"then {after:#06x}, calls {[n_ for n_, _ in calls]}: {bad} "
+              f"differing samples and state values")
+        if bad:
+            _fail(f"spu_resample at pitch {pitch:#x}, short calls and a "
+                  f"pitch change: {bad} differ from the twin")
     err["spu_resample"] = worst
     phase_done("audio: spu_resample vs plain")
 
@@ -3007,25 +3161,33 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
           f"{np.median(per_call):.3f}, max {per_call.max():.3f}; real-time "
           f"factor {rtf:.2f} (audio time / wall time) {card}")
 
-    for s in (1, AUDIO_WIDE):
-        x = torch.from_numpy((rng.standard_normal((s, AUDIO_CHUNK)) * 0.4)
+    shape_ms = {}
+    for s, n_ in ((1, rate // 60), (1, AUDIO_CHUNK),
+                  (AUDIO_WIDE, AUDIO_CHUNK)):
+        x = torch.from_numpy((rng.standard_normal((s, n_)) * 0.4)
                              .astype(np.float32)).to(dev)
         rst = rvb.init_state(dev, streams=s)
         p = torch.from_numpy(np.repeat(rvb.preset_params(5)[None], s, 0)
                              ).to(dev)
         consts = rvb._scalars(wet, 1.0, 2.0)
         ms_rvb = events_ms(lambda: rvb.spu_reverb(rst, x, x, p, *consts,
-                                                  True), AUDIO_REPS)
+                                                  True), AUDIO_REPS, True)
         qst = rsp.init_state(dev, streams=s)
         ms_rsp = events_ms(lambda: rsp.spu_resample(qst, x, x,
                                                     rsp.PITCH_22K, True),
-                           AUDIO_REPS)
-        ticks = AUDIO_CHUNK // 2
-        print(f"audio (d): S={s}, {AUDIO_CHUNK}-sample chunk: spu_reverb "
-              f"{ms_rvb:.3f} ms ({ms_rvb * 1e6 / ticks:.1f} ns per "
+                           AUDIO_REPS, True)
+        ticks = n_ // 2
+        shape_ms[(s, n_)] = (ms_rvb, ms_rsp)
+        print(f"audio (d): S={s}, {n_}-sample chunk: spu_reverb "
+              f"{ms_rvb:.4f} ms ({ms_rvb * 1e6 / ticks:.1f} ns per "
               f"22.05 kHz tick, {ms_rvb * 1e6 / ticks / s:.2f} ns per "
-              f"tick and stream), spu_resample {ms_rsp:.3f} ms "
-              f"({ms_rsp * 1e6 / AUDIO_CHUNK:.1f} ns per sample) {card}")
+              f"tick and stream), spu_resample {ms_rsp:.4f} ms "
+              f"({ms_rsp * 1e6 / n_:.2f} ns per sample, "
+              f"{ms_rsp * 1e6 / n_ / s:.3f} per sample and stream) {card}")
+    wide_ms = shape_ms[(AUDIO_WIDE, AUDIO_CHUNK)][0]
+    print(f"audio (d): spu_reverb S={AUDIO_WIDE} / S=1 on "
+          f"{AUDIO_CHUNK}-sample chunks: "
+          f"{wide_ms / shape_ms[(1, AUDIO_CHUNK)][0]:.3f}x {card}")
 
     # the main path's shapes, kernel against twin: one 60 Hz frame, then
     # a ragged 37-sample call with the state carried, (N,) inputs on an
@@ -3072,11 +3234,11 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
     rst = rvb.init_state(dev, streams=1)
     ms = {"spu_reverb": events_ms(
         lambda: rvb.spu_reverb(rst, x, x, p1, *rvb._scalars(wet, 1.0, 2.0),
-                               True), AUDIO_REPS)}
+                               True), AUDIO_REPS, True)}
     qst = rsp.init_state(dev, streams=1)
     ms["spu_resample"] = events_ms(
         lambda: rsp.spu_resample(qst, x, x, rsp.PITCH_22K, True),
-        AUDIO_REPS)
+        AUDIO_REPS, True)
     rst0 = rvb.init_state(dev, streams=1)
     qst0 = rsp.init_state(dev, streams=1)
     plain = {"spu_reverb": events_ms(
@@ -3097,29 +3259,48 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
     ops = {"spu_reverb": ticks * (26 * 4 + 30 + 34 * 2 + 2 * 5) + chunk * 8,
            "spu_resample": chunk * (4 + 4 + 2 * 7 + 8 + 4)
            + (chunk // 2) * 6}
+    # the reverb's chain: one stream's longest loop-carried path, at
+    # CHAIN_CYCLES a dependent instruction and the card's top SM clock —
+    # the IIR's CHAIN_IIR instructions from the word read back to the
+    # word written, every two ticks, or the accumulator's CHAIN_ACCUM a
+    # sample, whichever is longer
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    chain = {"spu_reverb": max(CHAIN_IIR * ticks / 2, CHAIN_ACCUM * chunk)}
+    print(f"spu_reverb chain bound: IIR {CHAIN_IIR} dependent instructions "
+          f"per 2 ticks x {ticks} ticks = {CHAIN_IIR * ticks / 2:.0f}, "
+          f"accumulator {CHAIN_ACCUM} per sample x {chunk} samples = "
+          f"{CHAIN_ACCUM * chunk}; {chain['spu_reverb']:.0f} x "
+          f"{CHAIN_CYCLES} cycles at the top SM clock {clock_mhz:.0f} MHz "
+          f"{card}")
     rows = []
     for name, src_line in (("spu_reverb", f"{JAX_AUDIO}/reverb.py:195"),
                            ("spu_resample",
                             f"{JAX_AUDIO}/resampler.py:98")):
-        t_bytes = by[name] / HBM_BYTES_S * 1e3
-        t_ops = ops[name] / F32_OPS_S * 1e3
-        bound = max(t_bytes, t_ops)
+        limits = {"bytes": by[name] / HBM_BYTES_S * 1e3,
+                  "operations": ops[name] / F32_OPS_S * 1e3}
+        if name in chain:
+            limits["chain"] = (chain[name] * CHAIN_CYCLES
+                               / (clock_mhz * 1e6) * 1e3)
+        bound_by = max(limits, key=limits.get)
+        bound = limits[bound_by]
+        step = ticks if name == "spu_reverb" else chunk
         print(f"{name}: kernel {ms[name]:.4f} ms, plain {plain[name]:.3f} "
-              f"ms, bound {bound:.6f} ms "
-              f"({'bytes' if t_bytes >= t_ops else 'operations'}: "
-              f"{by[name]} B, {ops[name]} operations) at S=1, {chunk} "
-              f"samples (one 60 Hz frame); a single stream is a serial "
-              f"chain the bound does not see: "
-              f"{ms[name] * 1e6 / (ticks if name == 'spu_reverb' else chunk):.1f}"
-              f" ns per {'22.05 kHz tick' if name == 'spu_reverb' else 'sample'}"
+              f"ms, bound {bound:.6f} ms ({bound_by}; "
+              + ", ".join(f"{k} {v:.6f}" for k, v in limits.items())
+              + f"; {by[name]} B, {ops[name]} operations), "
+              f"{bound / ms[name]:.1%} of the bound, at S=1, {chunk} "
+              f"samples (one 60 Hz frame): {ms[name] * 1e6 / step:.1f} ns "
+              f"per {'22.05 kHz tick' if name == 'spu_reverb' else 'sample'}"
               f" {card}")
         rows.append({"name": name, "route": "cuda", "source": AUDIO_SRC,
                      "replaces": src_line,
                      "launches": stream_launches[name],
                      "max_abs_err": err[name], "ms": ms[name],
                      "plain_ms": plain[name], "bound_ms": bound,
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations", "library_ms": None,
+                     "bound_by": bound_by, "library_ms": None,
                      "counted_on": "AudioStream, 32 s song, 60 Hz and "
                                    "ragged deltas"})
     phase_done("audio: times")

@@ -34,11 +34,14 @@ render_game_view (one `raster_sky` launch, the sky within one step)
 equal the CPU.  The editor path (torch code): every draw2d primitive,
 UiContext.paint with the icons, render_editor_viewport on the three
 editor levels (no raster kernel launched) and pick_triangle equal the
-CPU bit for bit.  The audio path: csrc/audio.cu's `spu_reverb` (with
-square waves loud enough to wrap `_mul_vol`'s product) and
-`spu_resample` equal their twins on the card, output and state, over
-two calls; `render_song` and a 60 Hz `AudioStream` on the card equal
-the CPU render.
+CPU bit for bit.  The audio path: csrc/audio.cu's `spu_reverb` (all ten
+presets, buffers pre-filled near the wrap, square waves loud enough to
+wrap `_mul_vol`'s product) and `spu_resample` (short calls, several
+segments, pitch changes) equal their twins on the card, output and
+state, with the state carried; `render_song` and a 60 Hz `AudioStream`
+on the card equal the CPU render.  The game tick on the card stays
+within the CPU tick's tolerance of the CPU's over frames 1-3
+(tests/torch_tick_drift.py).
 """
 
 import numpy as np
@@ -1115,41 +1118,132 @@ def _audio_noise(seed, shape, loud=False):
     return torch.from_numpy(x.astype(np.float32))
 
 
-@pytest.mark.parametrize("preset", [1, 4, 5, 6, 8])
-def test_spu_reverb_matches_twin(card, preset):
+def _prefilled_reverb(card, streams, seed):
+    """A reverb state of seeded int16 words, pos 300 words before the
+    wrap, so that windows straddle it and far reads return words."""
     from bonnie32_tpu_torch.audio import reverb as rvb
-    left = _audio_noise(preset, (4, 600), loud=True).to(card)
-    right = _audio_noise(preset + 50, (4, 600), loud=True).to(card)
+    rng = np.random.default_rng(seed)
+    words = rng.integers(-32768, 32768, (2, streams, rvb.BUFFER_SIZE))
+    return rvb.ReverbState(
+        buffer_l=torch.from_numpy(words[0].astype(np.int32)).to(card),
+        buffer_r=torch.from_numpy(words[1].astype(np.int32)).to(card),
+        pos=torch.full((streams,), rvb.BUFFER_SIZE - 300, dtype=torch.int32,
+                       device=card),
+        accum=torch.full((streams,), 0.5, device=card))
+
+
+@pytest.mark.parametrize("preset", range(10))
+def test_spu_reverb_matches_twin(card, preset):
+    """Every preset (OFF too) from pre-filled buffers near the wrap, calls
+    of 1, 37 and 735 samples with the state carried."""
+    from bonnie32_tpu_torch.audio import reverb as rvb
+    lengths = (1, 37, 735)
+    left = _audio_noise(preset, (4, sum(lengths)), loud=True).to(card)
+    right = _audio_noise(preset + 50, (4, sum(lengths)), loud=True).to(card)
     params = rvb.preset_params(preset)
-    st_k = rvb.init_state(card, streams=4)
-    st_p = rvb.init_state(card, streams=4)
+    st_k = _prefilled_reverb(card, 4, preset)
+    st_p = rvb.ReverbState(*(t.clone() for t in st_k))
     before = rvb.spu_reverb.launches
-    for seg in (slice(0, 301), slice(301, 600)):
+    a = 0
+    for n in lengths:
+        seg = slice(a, a + n)
         st_k, kl, kr = rvb.process(st_k, left[:, seg], right[:, seg],
                                    params, 0.6)
         st_p, pl, pr = rvb.process_ref(st_p, left[:, seg], right[:, seg],
                                        params, 0.6)
         assert torch.equal(kl, pl) and torch.equal(kr, pr)
-        for a, b in zip(st_k, st_p):
-            assert torch.equal(a, b)
-    assert rvb.spu_reverb.launches == before + 2
-    assert bool(st_k.buffer_l.any())
+        for x, y in zip(st_k, st_p):
+            assert torch.equal(x, y)
+        a += n
+    assert rvb.spu_reverb.launches == before + len(lengths)
+    assert int(st_k.pos.max()) < rvb.BUFFER_SIZE - 300   # crossed the wrap
 
 
 @pytest.mark.parametrize("pitch", [0x0800, 0x0400, 0x0200])
 def test_spu_resample_matches_twin(card, pitch):
+    """Short calls (1, ratio - 1, 37), a call over several of the
+    kernel's segments, then the other pitches in turn with the count
+    carried across the change."""
     from bonnie32_tpu_torch.audio import resampler as rsp
-    left = _audio_noise(pitch, (3, 900)).to(card)
-    right = _audio_noise(pitch + 1, (3, 900)).to(card)
+    ratio = rsp.PITCH_NATIVE // pitch
+    calls = [(1, pitch), (ratio - 1, pitch), (37, pitch), (451, pitch),
+             (2 * rsp.SEGMENT + 99, pitch)]
+    calls += [(n, p) for p in (0x0800, 0x0400, 0x0200) if p != pitch
+              for n in (3, 37)]
+    total = sum(n for n, _ in calls)
+    left = _audio_noise(pitch, (3, total)).to(card)
+    right = _audio_noise(pitch + 1, (3, total)).to(card)
     st_k = rsp.init_state(card, streams=3)
     st_p = rsp.init_state(card, streams=3)
-    for seg in (slice(0, 451), slice(451, 900)):
-        st_k, kl, kr = rsp.process(st_k, left[:, seg], right[:, seg], pitch)
-        st_p, pl, pr = rsp.process_ref(st_p, left[:, seg], right[:, seg],
-                                       pitch)
+    a = 0
+    for n, p in calls:
+        seg = slice(a, a + n)
+        st_k, kl, kr = rsp.process(st_k, left[:, seg], right[:, seg], p)
+        st_p, pl, pr = rsp.process_ref(st_p, left[:, seg], right[:, seg], p)
         assert torch.equal(kl, pl) and torch.equal(kr, pr)
-        for a, b in zip(st_k, st_p):
-            assert torch.equal(a, b)
+        for x, y in zip(st_k, st_p):
+            assert torch.equal(x, y)
+        a += n
+
+
+@pytest.mark.parametrize("preset", [1, 5])
+def test_spu_reverb_other_rates_and_disabled_match_twin(card, preset):
+    """Output rates of 48 kHz and 22.05 kHz (every sample ticks, so a
+    window ends on its tick limit before its sample limit), with the mix
+    on and off, the state carried."""
+    from bonnie32_tpu_torch.audio import reverb as rvb
+    left = _audio_noise(preset + 7, (2, 800)).to(card)
+    right = _audio_noise(preset + 9, (2, 800)).to(card)
+    params = rvb.preset_params(preset)
+    for rate_ratio in (48000 / 22050, 1.0):
+        for enabled in (True, False):
+            st_k = _prefilled_reverb(card, 2, preset)
+            st_p = rvb.ReverbState(*(t.clone() for t in st_k))
+            for seg in (slice(0, 450), slice(450, 800)):
+                st_k, kl, kr = rvb.process(st_k, left[:, seg], right[:, seg],
+                                           params, 0.6, 0.9, rate_ratio,
+                                           enabled)
+                st_p, pl, pr = rvb.process_ref(st_p, left[:, seg],
+                                               right[:, seg], params, 0.6,
+                                               0.9, rate_ratio, enabled)
+                assert torch.equal(kl, pl) and torch.equal(kr, pr)
+                for x, y in zip(st_k, st_p):
+                    assert torch.equal(x, y)
+            if not enabled:
+                assert torch.equal(kl, left[:, 450:])
+
+
+def test_spu_resample_disabled_matches_twin(card):
+    from bonnie32_tpu_torch.audio import resampler as rsp
+    left = _audio_noise(11, (2, 1500)).to(card)
+    right = _audio_noise(12, (2, 1500)).to(card)
+    st_k = rsp.init_state(card, streams=2)
+    st_p = rsp.init_state(card, streams=2)
+    for seg in (slice(0, 5), slice(5, 1500)):
+        st_k, kl, kr = rsp.process(st_k, left[:, seg], right[:, seg],
+                                   rsp.PITCH_11K, enabled=False)
+        st_p, pl, pr = rsp.process_ref(st_p, left[:, seg], right[:, seg],
+                                       rsp.PITCH_11K, enabled=False)
+        assert torch.equal(kl, left[:, seg]) and torch.equal(kl, pl)
+        assert torch.equal(kr, pr)
+        for x, y in zip(st_k, st_p):
+            assert torch.equal(x, y)
+
+
+def test_game_tick_card_matches_cpu(env):
+    """The same N=64 states and seeded actions ticked on the card and on
+    the CPU for 300 frames: frames 1-3 within the CPU tick's tolerance
+    against the JAX package (integers exact, floats rtol 1e-5 / atol
+    1e-4); the drift after 30 and 300 frames is printed, held to
+    nothing."""
+    import torch_tick_drift as td
+    level, dev, e = env
+    cpu_env = rollout.build_env(level, ts.textures(), ts.resolver,
+                                device="cpu")
+    report = td.tick_drift(level, [(e, dev), (cpu_env, torch.device("cpu"))],
+                           64, 300, 0)
+    print(td.summary(report))
+    assert td.held_faults(report) == []
 
 
 def test_inplace_process_updates_the_given_state(card):
