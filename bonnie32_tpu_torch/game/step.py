@@ -14,7 +14,7 @@ import numpy as np
 import torch
 
 from ..ops.fixed import sqrt_rn
-from ..types import CameraArrays
+from ..types import CameraArrays, resolve_device
 from .collision import CollisionGrid, PlayerParams, move_and_slide
 from .state import GameState
 
@@ -33,6 +33,17 @@ class Actions(NamedTuple):
     cam_y: torch.Tensor   # f32 right stick y
     sprint: torch.Tensor  # bool (Dodge held)
     jump: torch.Tensor    # bool (Jump held; edge-detected inside)
+
+
+def zero_actions(n=None, device=None) -> Actions:
+    """No input: every stick at 0, no button held, (n,) a field (0-dim
+    when `n` is None), on `device` (default: the card)."""
+    device = resolve_device(device)
+    shape = () if n is None else (n,)
+    f32 = torch.zeros(shape, dtype=torch.float32, device=device)
+    off = torch.zeros(shape, dtype=torch.bool, device=device)
+    return Actions(move_x=f32, move_y=f32.clone(), cam_x=f32.clone(),
+                   cam_y=f32.clone(), sprint=off, jump=off.clone())
 
 
 def _player_input(state: GameState, params: PlayerParams, actions: Actions,

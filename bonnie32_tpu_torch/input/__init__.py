@@ -10,8 +10,8 @@ The reference polls macroquad/gilrs; here the backends are pluggable
 or a real host shim).  `InputState.to_actions()` bridges to the batched
 simulation's Actions snapshot (game/step.py).  A copy of the JAX
 package's input/ (bonnie32_tpu/input/), with its MIDI queue (`midi.py`,
-over a pluggable backend); its debug.py, which draws UI, is not carried
-yet.
+over a pluggable backend) and its controller view (`debug.py`, painted
+through the port's UiContext).
 """
 
 from .actions import (ACTIONS, Action, GAMEPAD_BINDINGS, KEYBOARD_BINDINGS,

@@ -22,6 +22,10 @@ settings and the level's static facts before any launch:
 
 Any frame size runs.  On the card everything runs on the card; on the CPU
 only where the caller built the env with device="cpu".
+
+`demo_env` builds the JAX package's demo: the Cave sample level and every
+sample texture pack, read from the reference's asset tree (absent files
+raise FileNotFoundError).
 """
 
 from typing import NamedTuple
@@ -37,6 +41,11 @@ from .ops import raster_ref
 from .ops import skybox as sky_ops
 from .batch import INSTANCE_CHUNK, in_chunks
 from .types import CameraArrays, resolve_device
+
+# the JAX package's demo assets (rollout.demo_env)
+SAMPLES = "/root/reference/assets/samples"
+DEMO_LEVEL = f"{SAMPLES}/levels/Cave.ron"
+DEMO_PACKS = f"{SAMPLES}/texture-packs"
 
 
 class RolloutEnv(NamedTuple):
@@ -165,3 +174,32 @@ def render_sequential(env: RolloutEnv, cams, settings: RasterSettings,
                                       depth_mode="fast")
 
     return in_chunks(cams.position.shape[0], instance_chunk, render)
+
+
+def spawn_point(level):
+    """The demo's spawn: the centre of the first room's first sector with
+    a floor, 10 units above that floor."""
+    r0 = level.rooms[0]
+    for x, z, s in r0.iter_sectors():
+        if s.floor is not None:
+            px = float(r0.position[0]) + (x + 0.5) * 1024.0
+            pz = float(r0.position[2]) + (z + 0.5) * 1024.0
+            fi = level.get_floor_info((px, 0.0, pz))
+            return (px, fi.floor + 10.0, pz)
+    return None
+
+
+def demo_env(level_path=DEMO_LEVEL, flat: bool = False, device=None,
+             packs_root=DEMO_PACKS):
+    """The level at `level_path` with every texture pack under
+    `packs_root` (sorted pack directories, each a folder of PNGs), built
+    on `device` (default: the card): (level, env, spawn).  `flat`
+    compiles the kernel route too."""
+    from .models import level as L
+    from .models import texture_pack as tp
+
+    level = L.load_level(level_path)
+    textures = tp.load_texture_packs(packs_root)
+    env = build_env(level, textures, tp.make_resolver(textures), flat=flat,
+                    device=device)
+    return level, env, spawn_point(level)

@@ -14,6 +14,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .tree import map_tensors
+
 
 class MeshArrays(NamedTuple):
     """Vertex buffers. Reference: Vertex (types.rs:947-959)."""
@@ -176,12 +178,9 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_device(tree, device):
-    """Move every tensor of a (nested) NamedTuple to `device`."""
-    if isinstance(tree, torch.Tensor):
-        return tree.to(device)
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(to_device(x, device) for x in tree))
-    return tree
+    """Move every tensor of a tree (NamedTuples, tuples, lists, dicts;
+    `tree.py`) to `device`; other leaves stay as they are."""
+    return map_tensors(lambda t: t.to(device), tree)
 
 
 def device_of(*args) -> torch.device:

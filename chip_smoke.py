@@ -103,7 +103,15 @@ the JAX package.  In order:
      8-channel song rendered by `render_song` and streamed by
      `AudioStream.render_audio` (60 Hz and ragged deltas), bit for bit,
      through the oscillators and through a SoundFont, and their times,
-     with the reverb's bound seeing its serial chain.
+     with the reverb's bound seeing its serial chain;
+  9. the datagen fleet's surroundings (`run_fleet`): the port's
+     `entry.entry` card vs CPU, the instance-sharded step
+     (`parallel.mesh`) at N=1024 over every card and over the card named
+     four times equal to the unsharded step bit for bit (each shard
+     launching `raster_bin`, visibility and resolve), `raster_stats`
+     card vs CPU, a checkpoint of the states resumed bit for bit, the
+     kernel route's idle share under `profiling.trace`, and the debug
+     overlay, menu and controller view card vs CPU, with their times.
 
 ptxas' register count of every kernel instantiation is printed as one
 JSON object after the build.  The last two lines of standard output are
@@ -156,6 +164,11 @@ AUDIO_WIDE = 64        # streams of the wide kernel time
 AUDIO_REPS = 5         # timed kernel calls
 WRAP_STREAMS = 64      # streams of the reverb check across the wrap
 WRAP_LENGTHS = (1, 37, 735, 4096)   # its calls, the state carried
+N_ENTRY = 4            # instances of the entry point, card vs CPU
+N_FLEET = 1024         # instances of the sharded step, resume and trace
+FLEET_FRAMES = 3       # chained frames of the sharded step and the resume
+FLEET_SHARDS = 4       # entries of the mesh naming the card several times
+TRACE_FRAMES = 5       # frames under torch.profiler
 CHAIN_IIR = 8          # the IIR's dependent integer instructions a 2 ticks
 CHAIN_ACCUM = 3        # the accumulator's a sample: add, compare, subtract
 CHAIN_CYCLES = 4       # cycles a dependent instruction
@@ -1679,6 +1692,7 @@ def run(dev):
     run_play(dev, card, phase_done, reset_counts, read_counts)
     run_editor(dev, card, phase_done, reset_counts, read_counts)
     audio_rows = run_audio(dev, card, phase_done, reset_counts, read_counts)
+    run_fleet(dev, card, phase_done, reset_counts, read_counts)
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
@@ -3305,6 +3319,269 @@ def run_audio(dev, card, phase_done, reset_counts, read_counts):
                                    "ragged deltas"})
     phase_done("audio: times")
     return rows
+
+
+def run_fleet(dev, card, phase_done, reset_counts, read_counts):
+    """The datagen fleet's surroundings on `dev` (no kernel of their own;
+    the sharded step launches K1-K3 on every shard), on the Cave-size
+    level at HEIGHT x WIDTH:
+
+      (a) the entry point: entry.entry(level, n=N_ENTRY) on the card and
+          on the CPU, one step each: one `raster_bin`, visibility and
+          resolve launch on the card, the frames equal (0 differing
+          pixels, colour and depth);
+      (b) the instance-sharded step: N_FLEET instances, FLEET_FRAMES
+          chained frames of seeded actions, unsharded and through
+          parallel.mesh.sharded_step_and_render over `instance_mesh()`
+          (every visible card) and over `dev` named FLEET_SHARDS times:
+          every frame and, after the last, every state word equal to the
+          unsharded run's; each shard launches `raster_bin`, visibility
+          and resolve once a frame; then ms per frame of the three, CUDA
+          events around FLEET_FRAMES frames (the checks warmed them up);
+      (c) profiling.raster_stats on the Cave-size room for the N_FLEET
+          cameras after (b), game and no-cull settings: the five counters
+          of every camera equal the CPU's;
+      (d) resume: the states after (b) saved with checkpoint.save into
+          build/fleet/ and restored into fresh initial states on the
+          card, FLEET_FRAMES more frames from each: frames and states
+          equal the uninterrupted run's bit for bit; the file's bytes and
+          the save and restore times (host clock);
+      (e) idle share: profiling.trace around TRACE_FRAMES unsynchronized
+          frames of `rollout.step_and_render` at N_FLEET (the opaque
+          main path), then `busy_share`: the kernels traced and the share
+          of the window the card ran one;
+      (f) the game's debug overlay, the options menu and the controller
+          view (tests/torch_fleet_cases.paint_debug_views) painted over
+          (a)'s first frame on the card and on the CPU: no kernel
+          launched, 0 differing words.
+    """
+    import numpy as np
+    import torch
+
+    import torch_fleet_cases as fc
+    import torch_scenes as ts
+    from bonnie32_tpu_torch import checkpoint, entry, profiling, rollout
+    from bonnie32_tpu_torch.config import RasterSettings
+    from bonnie32_tpu_torch.game import step as stp
+    from bonnie32_tpu_torch.models import level as L
+    from bonnie32_tpu_torch.parallel import mesh as pmesh
+    from bonnie32_tpu_torch.types import FrameBuffers, to_device
+
+    cpu = torch.device("cpu")
+    game = RasterSettings.game()
+    level = ts.cave_size_level(L)
+    raster = {"raster_bin": 1, "raster_visibility": 1, "raster_resolve": 1}
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "fleet")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def check_counts(label, counts, per):
+        want = {k: raster.get(k, 0) * per for k in counts}
+        if counts != want:
+            _fail(f"{label}: launches {counts}, want {want}")
+
+    def differing(a, b):
+        """Words that differ between two tensors (floats as their bits)."""
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return int((a.to(b.device) != b).sum())
+
+    def state_words(a, b):
+        return sum(differing(getattr(a, f), getattr(b, f))
+                   for f in a._fields)
+
+    # ---- (a) the entry point, card vs CPU ----
+    kw = dict(n=N_ENTRY, textures=ts.textures(), resolve=ts.resolver)
+    fn, args = entry.entry(level, device=dev, **kw)
+    torch.cuda.synchronize()
+    reset_counts()
+    fbs = fn(*args)
+    torch.cuda.synchronize()
+    check_counts("fleet entry", read_counts(), 1)
+    fn_c, args_c = entry.entry(level, device=cpu, **kw)
+    fbs_c = fn_c(*args_c)
+    diff = differing(fbs.color, fbs_c.color)
+    ddiff = differing(fbs.depth, fbs_c.depth)
+    lit = ((fbs_c.color >> 24) & 255).eq(255).float().mean((1, 2))
+    print(f"fleet (a) entry: N={N_ENTRY} {HEIGHT}x{WIDTH}, frames card vs "
+          f"CPU: {diff} differing pixels, {ddiff} differing depth words; "
+          f"coverage {lit.min().item():.3f}-{lit.max().item():.3f} {card}")
+    if diff or ddiff:
+        _fail("fleet entry: the card's frames differ from the CPU's")
+    if float(lit.min()) < 0.25:
+        _fail(f"fleet entry: coverage {lit.tolist()}")
+    phase_done("fleet: entry point")
+
+    # ---- (b) the instance-sharded step ----
+    env = args[1]
+    start = rollout.initial_states(level, ts.spawn_point(level), N_FLEET,
+                                   device=dev)
+    rng = np.random.default_rng(SEED + 12)
+    acts = [stp.Actions(**{k: torch.from_numpy(v).to(dev) for k, v in
+                           ts.actions_np(rng, N_FLEET).items()})
+            for _ in range(2 * FLEET_FRAMES + TRACE_FRAMES)]
+
+    def unsharded(states, frames):
+        out = []
+        for a in frames:
+            states, fb = rollout.step_and_render(
+                states, env, a, game, instance_chunk=None)
+            out.append(fb)
+        return states, out
+
+    ref_states, ref = unsharded(start, acts[:FLEET_FRAMES])
+    meshes = {"every card": pmesh.instance_mesh(),
+              f"{dev} x{FLEET_SHARDS}": pmesh.instance_mesh(
+                  [dev] * FLEET_SHARDS)}
+    steps = {}
+    for name, mesh in meshes.items():
+        step = pmesh.sharded_step_and_render(mesh, env, game, HEIGHT, WIDTH)
+        sh_acts = [pmesh.shard_instances(a, mesh)
+                   for a in acts[:FLEET_FRAMES]]
+        steps[name] = (step, mesh, sh_acts)
+        shards = pmesh.shard_instances(start, mesh)
+        torch.cuda.synchronize()
+        reset_counts()
+        diffs = []
+        for k in range(FLEET_FRAMES):
+            shards, fbs_sh = step(shards, sh_acts[k])
+            got = pmesh.gather_instances(fbs_sh, dev)
+            diffs.append(differing(got.color, ref[k].color)
+                         + differing(got.depth, ref[k].depth))
+        torch.cuda.synchronize()
+        counts = read_counts()
+        words = state_words(pmesh.gather_instances(shards, dev), ref_states)
+        print(f"fleet (b) sharded over {name} ({len(mesh)} shards of "
+              f"{[int(s.pos.shape[0]) for s in shards]} instances): "
+              f"differing frame words per frame {diffs}, differing state "
+              f"words {words}; launches {counts} {card}")
+        if any(diffs) or words:
+            _fail(f"fleet sharded step over {name}: differs from the "
+                  f"unsharded step")
+        check_counts(f"fleet sharded step over {name}", counts,
+                     FLEET_FRAMES * len(mesh))
+
+    def timed(run):
+        torch.cuda.synchronize()
+        evs[0].record()
+        run()
+        evs[1].record()
+        torch.cuda.synchronize()
+        return evs[0].elapsed_time(evs[1]) / FLEET_FRAMES
+
+    ms = {"unsharded": timed(lambda: unsharded(start,
+                                               acts[:FLEET_FRAMES]))}
+    for name, (step, mesh, sh_acts) in steps.items():
+        def run(step=step, mesh=mesh, sh_acts=sh_acts):
+            shards = pmesh.shard_instances(start, mesh)
+            for a in sh_acts:
+                shards, _ = step(shards, a)
+        ms[f"sharded over {name}"] = timed(run)
+    print("fleet (b) ms per frame (N=%d, %dx%d, CUDA events over %d "
+          "frames; a sharded run includes cutting the start states): "
+          % (N_FLEET, WIDTH, HEIGHT, FLEET_FRAMES)
+          + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()) + f" {card}")
+    phase_done("fleet: sharded step")
+
+    # ---- (c) raster_stats, card vs CPU ----
+    cams = stp.character_camera(ref_states, env.params)
+    tables = fc.room_tables(env.scene)
+    tables_c = to_device(tables, cpu)
+    for label, settings in (("game", game),
+                            ("no cull", RasterSettings.game(
+                                backface_cull=False))):
+        reset_counts()
+        got = profiling.raster_stats(*tables[:3], cams, *tables[3:],
+                                     settings, WIDTH, HEIGHT)
+        counts = read_counts()
+        want = profiling.raster_stats(*tables_c[:3], to_device(cams, cpu),
+                                      *tables_c[3:], settings, WIDTH,
+                                      HEIGHT)
+        bad = sum(differing(a, b) for a, b in zip(got, want))
+        print(f"fleet (c) raster_stats, {label}, {N_FLEET} cameras: "
+              + ", ".join(f"{f} {int(v.sum())}"
+                          for f, v in zip(got._fields, got))
+              + f" (summed); {bad} counters differ from the CPU's; "
+              f"launches {counts} {card}")
+        if bad or any(counts.values()):
+            _fail(f"fleet raster_stats ({label}): differs from the CPU's "
+                  f"or launched a kernel")
+    phase_done("fleet: raster_stats")
+
+    # ---- (d) checkpoint and resume ----
+    path = os.path.join(out_dir, "states.npz")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.save(path, ref_states, metadata={"frame": FLEET_FRAMES})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    template = rollout.initial_states(level, ts.spawn_point(level), N_FLEET,
+                                      device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    restored = checkpoint.restore(path, template)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    if (checkpoint.load_metadata(path)["user"]["frame"] != FLEET_FRAMES
+            or state_words(restored, ref_states)
+            or not all(t.device == ref_states.pos.device for t in restored)):
+        _fail("fleet resume: the restored states differ from the saved")
+    later = acts[FLEET_FRAMES:2 * FLEET_FRAMES]
+    straight, fb_s = unsharded(ref_states, later)
+    resumed, fb_r = unsharded(restored, later)
+    fdiff = sum(differing(a.color, b.color) + differing(a.depth, b.depth)
+                for a, b in zip(fb_r, fb_s))
+    sdiff = state_words(resumed, straight)
+    print(f"fleet (d) resume: {N_FLEET} states after frame {FLEET_FRAMES}, "
+          f"{os.path.getsize(path)} bytes, save {save_ms:.3f} ms, restore "
+          f"{restore_ms:.3f} ms (host clock); {FLEET_FRAMES} more frames: "
+          f"{fdiff} differing frame words, {sdiff} differing state words "
+          f"against the uninterrupted run {card}")
+    if fdiff or sdiff:
+        _fail("fleet resume: differs from the uninterrupted run")
+    phase_done("fleet: checkpoint and resume")
+
+    # ---- (e) the kernel route's idle share ----
+    states = straight
+    torch.cuda.synchronize()
+    reset_counts()
+    with profiling.trace(os.path.join(out_dir, "trace")) as prof:
+        for a in acts[2 * FLEET_FRAMES:]:
+            states, _ = rollout.step_and_render(states, env, a, game,
+                                                instance_chunk=None)
+        torch.cuda.synchronize()
+    check_counts("fleet trace", read_counts(), TRACE_FRAMES)
+    kernels = profiling.kernel_events(prof)
+    share = profiling.busy_share(prof)
+    ours = sum(1 for e in kernels if any(
+        k in e.name for k in ("bin_kernel", "visibility_kernel",
+                              "resolve_kernel")))
+    print(f"fleet (e) trace: {TRACE_FRAMES} frames at N={N_FLEET} under "
+          f"torch.profiler: {len(kernels)} kernels traced ({ours} of the "
+          f"raster kernels), device busy share {share:.4f}, idle share "
+          f"{1.0 - share:.4f} (union of kernel intervals over the traced "
+          f"window) {card}")
+    phase_done("fleet: trace")
+
+    # ---- (f) the debug overlay, menu and controller view ----
+    frame = FrameBuffers(fbs.color[:1].clone(), fbs.depth[:1].clone())
+    frame_c = FrameBuffers(fbs_c.color[:1].clone(), fbs_c.depth[:1].clone())
+    torch.cuda.synchronize()
+    reset_counts()
+    got = fc.paint_debug_views(frame)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    want = fc.paint_debug_views(frame_c)
+    painted = int((want.color != frame_c.color).sum())
+    diff = differing(got.color, want.color) + differing(got.depth,
+                                                        want.depth)
+    print(f"fleet (f) debug overlay, menu and controller view over the "
+          f"entry's frame: {painted} words painted, {diff} differ from the "
+          f"CPU's; launches {counts} {card}")
+    if diff or painted < 5000 or any(counts.values()):
+        _fail("fleet debug views: differ from the CPU's or launched a "
+              "kernel")
+    phase_done("fleet: debug overlay")
 
 
 if __name__ == "__main__":

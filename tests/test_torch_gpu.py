@@ -1285,3 +1285,131 @@ def test_render_song_and_stream_match_cpu(card):
         parts.append(st.read(st.ring.available)[0])
     np.testing.assert_array_equal(np.concatenate(parts)[:len(ref[0])],
                                   ref[0])
+
+
+# ---- the datagen fleet's surroundings: sharded step, checkpoint resume,
+# raster counters, debug overlay ----
+
+def _fleet_frames(states, e, dev, frames, seed, step=None, mesh=None):
+    """`frames` chained frames of seeded actions at H x W: unsharded, or
+    through `step` over `mesh` (states given as shards).  Returns the
+    states and the frames (gathered onto `dev`)."""
+    from bonnie32_tpu_torch.parallel import mesh as pmesh
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(frames):
+        acts = stp.Actions(**{k: torch.from_numpy(v).to(dev)
+                              for k, v in ts.actions_np(rng, N * 16).items()})
+        if step is None:
+            states, fb = rollout.step_and_render(
+                states, e, acts, RasterSettings.game(), height=H, width=W,
+                instance_chunk=None)
+        else:
+            states, fbs = step(states, pmesh.shard_instances(acts, mesh))
+            fb = pmesh.gather_instances(fbs, dev)
+        out.append(fb)
+    return states, out
+
+
+def test_sharded_step_on_card_equals_unsharded(env):
+    """N=64 over the visible cards and over cuda:0 named four times, 3
+    chained frames: frames and every state word equal the unsharded
+    step's; each shard launches the visibility and resolve kernels."""
+    from bonnie32_tpu_torch.ops import _cuda
+    from bonnie32_tpu_torch.parallel import mesh as pmesh
+    level, dev, e = env
+    n = N * 16
+    start = rollout.initial_states(level, ts.spawn_point(level), n,
+                                   device=dev)
+    ref_states, ref = _fleet_frames(start, e, dev, 3, 21)
+    for mesh in (pmesh.instance_mesh(), pmesh.instance_mesh([dev] * 4)):
+        step = pmesh.sharded_step_and_render(mesh, e, RasterSettings.game(),
+                                             H, W)
+        before = _cuda.raster_visibility.launches
+        shards, got = _fleet_frames(pmesh.shard_instances(start, mesh), e,
+                                    dev, 3, 21, step, mesh)
+        assert _cuda.raster_visibility.launches - before == 3 * len(mesh)
+        for a, b in zip(got, ref):
+            assert torch.equal(a.color, b.color)
+            assert torch.equal(a.depth.view(torch.int32),
+                               b.depth.view(torch.int32))
+        out = pmesh.gather_instances(shards, dev)
+        for f in out._fields:
+            a, b = getattr(out, f), getattr(ref_states, f)
+            if a.dtype.is_floating_point:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b), f
+
+
+def test_checkpoint_resume_on_card(env, tmp_path):
+    """2 frames, save, restore into a fresh template on the card, 2 more:
+    equal to 4 frames run straight through."""
+    from bonnie32_tpu_torch import checkpoint as ckpt
+    level, dev, e = env
+    n = N * 16
+    fresh = lambda: rollout.initial_states(  # noqa: E731
+        level, ts.spawn_point(level), n, device=dev)
+    straight, fbs = _fleet_frames(fresh(), e, dev, 4, 22)
+    half, _ = _fleet_frames(fresh(), e, dev, 2, 22)
+    p = str(tmp_path / "fleet.npz")
+    ckpt.save(p, half)
+    back = ckpt.restore(p, fresh())
+    assert all(t.is_cuda for t in back)
+    # the resumed run takes frames 3-4 of the same action stream
+    rng = np.random.default_rng(22)
+    for _ in range(2):
+        ts.actions_np(rng, n)
+    for _ in range(2):
+        acts = stp.Actions(**{k: torch.from_numpy(v).to(dev)
+                              for k, v in ts.actions_np(rng, n).items()})
+        back, fb = rollout.step_and_render(back, e, acts,
+                                           RasterSettings.game(), height=H,
+                                           width=W, instance_chunk=None)
+    assert torch.equal(fb.color, fbs[-1].color)
+    for f in back._fields:
+        a, b = getattr(back, f), getattr(straight, f)
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_raster_stats_card_matches_cpu(env, cull):
+    import torch_fleet_cases as fc
+    from bonnie32_tpu_torch import profiling
+    from bonnie32_tpu_torch.types import to_device
+    level, dev, e = env
+    states = rollout.initial_states(level, ts.spawn_point(level), 64,
+                                    device=dev)
+    rng = np.random.default_rng(23)
+    acts = stp.Actions(**{k: torch.from_numpy(v).to(dev)
+                          for k, v in ts.actions_np(rng, 64).items()})
+    states = stp.tick(states, e.grid, e.params, acts, 1.0 / 60.0)
+    cams = stp.character_camera(states, e.params)
+    settings = RasterSettings.game(backface_cull=cull)
+    tables = fc.room_tables(e.scene)
+    got = profiling.raster_stats(*tables[:3], cams, *tables[3:], settings,
+                                 W, H)
+    want = profiling.raster_stats(*to_device(tables[:3], "cpu"),
+                                  to_device(cams, "cpu"),
+                                  *to_device(tables[3:], "cpu"), settings,
+                                  W, H)
+    for a, b in zip(got, want):
+        assert a.is_cuda and torch.equal(a.cpu(), b)
+    assert int(got.triangles_drawn.min()) > 0
+
+
+def test_debug_views_card_match_cpu(env):
+    import torch_fleet_cases as fc
+    from bonnie32_tpu_torch.types import FrameBuffers
+    level, dev, e = env
+    r = np.random.default_rng(24)
+    color = torch.from_numpy((r.integers(0, 1 << 24, (1, H, W))
+                              | (255 << 24)).astype(np.uint32).view(np.int32))
+    depth = torch.full((1, H, W), 2.0)
+    got = fc.paint_debug_views(FrameBuffers(color.to(dev), depth.to(dev)))
+    want = fc.paint_debug_views(FrameBuffers(color.clone(), depth))
+    assert got.color.is_cuda
+    assert int((want.color != color).sum()) > 5000
+    assert torch.equal(got.color.cpu(), want.color)
+    assert torch.equal(got.depth.cpu(), want.depth)

@@ -302,6 +302,38 @@ def spawn_point(level):
     raise ValueError("level has no floor")
 
 
+def write_png_pack(pack_dir, names=TEXTURE_NAMES, texs=None):
+    """Write `texs` (default: textures()) as PNGs `<name>.png` into
+    `pack_dir`: Color15 -> RGBA8 (5-bit channels shifted up), the
+    transparent word 0x0000 at alpha 0; the STP bit is lost, so a
+    drawable-black 0x8000 texel loads back transparent.  Needs Pillow."""
+    import os
+    from PIL import Image
+    os.makedirs(pack_dir, exist_ok=True)
+    for name, (pix, _) in zip(names, texs or textures()):
+        c = pix.astype(np.uint16)
+        rgba = np.stack([((c >> 10) & 31) << 3, ((c >> 5) & 31) << 3,
+                         (c & 31) << 3,
+                         np.where(c == 0, 0, 255)], -1).astype(np.uint8)
+        Image.fromarray(rgba, "RGBA").save(
+            os.path.join(pack_dir, f"{name}.png"))
+
+
+def write_demo_files(L, root, names=TEXTURE_NAMES[:4]):
+    """cave_size_level saved with level module `L`'s save_level as
+    `root`/Cave.ron and a pack `root`/packs/torch-scenes of the textures
+    `names` (write_png_pack): the files rollout.demo_env reads.  Returns
+    (level path, packs root)."""
+    import os
+    os.makedirs(root, exist_ok=True)
+    level_path = os.path.join(root, "Cave.ron")
+    L.save_level(cave_size_level(L), level_path)
+    packs = os.path.join(root, "packs")
+    write_png_pack(os.path.join(packs, "torch-scenes"), names,
+                   [textures()[TEXTURE_NAMES.index(n)] for n in names])
+    return level_path, packs
+
+
 def actions_np(rng, n):
     """Numpy-seeded datagen actions as a dict of arrays, for both sides."""
     ang = rng.uniform(0, 2 * np.pi, n).astype(np.float32)
