@@ -111,7 +111,19 @@ the JAX package.  In order:
      launching `raster_bin`, visibility and resolve), `raster_stats`
      card vs CPU, a checkpoint of the states resumed bit for bit, the
      kernel route's idle share under `profiling.trace`, and the debug
-     overlay, menu and controller view card vs CPU, with their times.
+     overlay, menu and controller view card vs CPU, with their times;
+ 10. the rest of the UI, storage and the texture import path (`run_ui`):
+     a frame of every widget, panel and an open radial menu painted by
+     UiContext.paint over a 640x480 editor view, the text input and the
+     landing page drawn into it, card vs CPU with 0 differing words and no
+     kernel launched; the drag tracker's pickers with the camera on the
+     card against the CPU; a seeded image imported (resized to 64x64,
+     quantized at 4 and 8 bpp) as the Cave-size level's floor texture and
+     drawn by `entry.entry` at N=64 (K1-K3 launched once, card = CPU); a
+     checkpoint of 64 states through storage/ (local files, the in-memory
+     cloud, the cloud over a fake HTTP API on 127.0.0.1), each route also
+     through async_ops, restored on the card bit for bit, and the
+     1,024-state checkpoint refused by the cloud; with their times.
 
 ptxas' register count of every kernel instantiation is printed as one
 JSON object after the build.  The last two lines of standard output are
@@ -169,6 +181,12 @@ N_FLEET = 1024         # instances of the sharded step, resume and trace
 FLEET_FRAMES = 3       # chained frames of the sharded step and the resume
 FLEET_SHARDS = 4       # entries of the mesh naming the card several times
 TRACE_FRAMES = 5       # frames under torch.profiler
+UI_REPS = 5            # timed UI paints / draws / storage round trips
+N_IMPORT = 64          # instances drawing the imported floor texture
+N_STORE = 64           # states of the checkpoint sent through storage/
+N_STORE_BIG = 1024     # states of the checkpoint the cloud must refuse
+DRAG_SEEDS = 3         # seeded cameras of the drag tracker's check
+ANGLE_TOL = 1e-5       # rad: the card's atan2 vs the CPU's (drag tracker)
 CHAIN_IIR = 8          # the IIR's dependent integer instructions a 2 ticks
 CHAIN_ACCUM = 3        # the accumulator's a sample: add, compare, subtract
 CHAIN_CYCLES = 4       # cycles a dependent instruction
@@ -1693,6 +1711,7 @@ def run(dev):
     run_editor(dev, card, phase_done, reset_counts, read_counts)
     audio_rows = run_audio(dev, card, phase_done, reset_counts, read_counts)
     run_fleet(dev, card, phase_done, reset_counts, read_counts)
+    run_ui(dev, card, phase_done, reset_counts, read_counts)
 
     t_counts = runs["transparent"][0]
     launches = {vis: t_counts[vis], res: t_counts[res],
@@ -3582,6 +3601,340 @@ def run_fleet(dev, card, phase_done, reset_counts, read_counts):
         _fail("fleet debug views: differ from the CPU's or launched a "
               "kernel")
     phase_done("fleet: debug overlay")
+
+
+def run_ui(dev, card, phase_done, reset_counts, read_counts):
+    """The rest of ui/, storage/ and the texture import path on `dev`
+    (host code and torch code over draw2d, picking and the main path's
+    kernels; no kernel of their own), each held against the CPU:
+
+      (a) a widget frame (tests/torch_ui_cases.widget_frame): every widget
+          of ui/widgets.py, a split panel with a collapsible panel and an
+          open radial menu, the mouse dragging a knob along a seeded path
+          for three frames while a dropdown is open, painted by
+          UiContext.paint over the Cave editor case's 3-D view at 640x480
+          (render_editor_viewport on the card, copied to the CPU for the
+          CPU's paint): 0 differing words, no kernel launched; the command
+          count and ms per paint (CUDA events, after a warm-up paint);
+      (b) draw_text_input (a selection and the caret showing) and the
+          landing page (draw_landing scrolled to its end with a link
+          hovered, draw_landing_ctx, draw_link_row) drawn into that view:
+          0 differing words, no kernel launched; ms per call;
+      (c) the drag tracker's line, plane, circle and screen pickers,
+          unsnapped and snapped both ways, from DRAG_SEEDS seeded cameras
+          with the camera basis on the card against the same drags with a
+          numpy camera: every ray cast on the card, positions equal bit
+          for bit, angles equal or within ANGLE_TOL (the largest
+          difference printed); ms per update (host clock);
+      (d) a seeded 96x80 RGBA image through TextureImportState: resized to
+          64x64 and quantized at 4 and 8 bpp (index 0 transparent), the
+          UserTexture's words as the Cave-size level's FLOOR texture, one
+          step of entry.entry at N_IMPORT, 320x240, game settings: one
+          `raster_bin`, visibility and resolve launch, the frames equal to
+          the CPU's and different from the checker floor's; ms of the
+          import and of quantize_image alone (host clock);
+      (e) a checkpoint of N_STORE rollout states (checkpoint.save_bytes)
+          through storage.Storage on three routes (LocalStorage under
+          build/ui/, CloudStorage over MemoryCloudBackend, CloudStorage
+          over HttpCloudBackend and the fake API of
+          tests/torch_cloud_server.py on 127.0.0.1), each staged through
+          async_ops.save_async / load_async, read back and restored on the
+          card bit for bit; ms per save and per load (host clock); the
+          N_STORE_BIG-state checkpoint refused with FileTooLarge by the
+          in-memory and the HTTP cloud.
+    """
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import torch_cloud_server as fake
+    import torch_editor_cases as ec
+    import torch_scenes as ts
+    import torch_ui_cases as uc
+    from bonnie32_tpu_torch import checkpoint, entry, rollout, texture, ui
+    from bonnie32_tpu_torch.config import RasterSettings
+    from bonnie32_tpu_torch.editor import state as ES
+    from bonnie32_tpu_torch.editor import viewport_edit as VE
+    from bonnie32_tpu_torch.editor import viewport_render as VR
+    from bonnie32_tpu_torch.models import asset as A
+    from bonnie32_tpu_torch.models import level as L
+    from bonnie32_tpu_torch.models import mesh as M
+    from bonnie32_tpu_torch.models import quantize
+    from bonnie32_tpu_torch.models import scene
+    from bonnie32_tpu_torch.models import user_texture as U
+    from bonnie32_tpu_torch.ops import picking as pk
+    from bonnie32_tpu_torch import storage
+    from bonnie32_tpu_torch.storage import async_ops
+    from bonnie32_tpu_torch.storage.cloud import HttpCloudBackend
+    from bonnie32_tpu_torch.types import FrameBuffers
+
+    cpu = torch.device("cpu")
+    evs = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "ui")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+
+    def no_launch(label, counts):
+        if any(counts.values()):
+            _fail(f"ui {label}: launches {counts}, want none")
+
+    def differing(a, b):
+        """Words that differ between two tensors (floats as their bits)."""
+        if a.dtype.is_floating_point:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        return int((a.to(b.device) != b).sum())
+
+    def event_ms(fn, reps=UI_REPS):
+        """ms a call of fn(), CUDA events around `reps` calls after one."""
+        fn()
+        torch.cuda.synchronize()
+        evs[0].record()
+        for _ in range(reps):
+            fn()
+        evs[1].record()
+        torch.cuda.synchronize()
+        return evs[0].elapsed_time(evs[1]) / reps
+
+    def frame_on(view, device):
+        return FrameBuffers(view.color.to(device).clone(),
+                            view.depth.to(device).clone())
+
+    # ---- (a) the widget frame over the editor view ----
+    w, h = uc.FRAME_SIZE
+    st, ed, hv, tex, kw = ec.editor_case("cave", L, ES, VE, A, M, U, scene)
+    sc_d = scene.compile_level(st.level, tex, ts.resolver, device=dev, **kw)
+    view = VR.render_editor_viewport(st, sc_d, w, h,
+                                     settings=RasterSettings.modeler(),
+                                     editor=ed, hover=hv, device=dev)
+    view_c = frame_on(view, cpu)
+    ctx, trace = uc.widget_frame(ui, SEED + 13)
+    knob = [f[0][-1][0] for f in trace]
+    dd_open = dict(trace[-1][3])["dropdown"]
+    if None in knob or not any(k == "state" and v[1][0][1] == "dd"
+                               for k, v in dd_open):
+        _fail(f"ui widget frame: knob values {knob}, dropdown {dd_open}")
+    torch.cuda.synchronize()
+    reset_counts()
+    got = ctx.paint(frame_on(view, dev))
+    torch.cuda.synchronize()
+    no_launch("widget frame", read_counts())
+    if got.color.device.type != dev.type:
+        _fail(f"ui widget frame: painted on {got.color.device}")
+    want = ctx.paint(frame_on(view_c, cpu))
+    diff = differing(got.color, want.color) + differing(got.depth,
+                                                        want.depth)
+    painted = int((want.color != view_c.color).sum())
+    kinds = sorted({c[0] for c in ctx.commands})
+    ms = event_ms(lambda: ctx.paint(frame_on(view, dev)))
+    print(f"ui (a) widget frame at {w}x{h} over the editor view: "
+          f"{len(ctx.commands)} commands ({', '.join(kinds)}), knob values "
+          f"{knob}, {painted} words painted, {diff} differ from the CPU's; "
+          f"{ms:.3f} ms a paint (CUDA events, {UI_REPS} paints) {card}")
+    if diff or painted < 50000:
+        _fail("ui widget frame: the card's paint differs from the CPU's")
+    phase_done("ui: widget frame")
+
+    # ---- (b) text input and landing page ----
+    ti = {}
+    for label, run in (
+            ("text input", lambda fb: uc.text_input_calls(ui, fb)),
+            ("text input, scale 2", lambda fb: uc.text_input_calls(ui, fb,
+                                                                   2)),
+            ("landing", lambda fb: uc.landing_calls(ui, fb, w, h))):
+        torch.cuda.synchronize()
+        reset_counts()
+        got, out = run(frame_on(view, dev))
+        torch.cuda.synchronize()
+        no_launch(label, read_counts())
+        want, cout = run(frame_on(view_c, cpu))
+        diff = differing(got.color, want.color)
+        painted = int((want.color != view_c.color).sum())
+        ti[label] = (diff, painted, out == cout)
+        if diff or painted == 0 or out != cout:
+            _fail(f"ui {label}: {diff} words differ from the CPU's, "
+                  f"{painted} painted, state equal {out == cout}")
+    state = ui.TextInputState.new("hello world_x 42")
+    state.selection_start, state.cursor = 2, 9
+    rect = ui.Rect(8, 8, 240, 16)
+    fb_d = frame_on(view, dev)
+    ms_ti = event_ms(lambda: ui.draw_text_input(fb_d, rect, state))
+    landing = uc.sub(ui, "landing")
+    ms_ld = event_ms(lambda: landing.draw_landing(
+        fb_d, ui.Rect(0, 0, w, h), landing.LandingState()))
+    print("ui (b) text input (a selection, the caret shown) and landing "
+          "page (scrolled, a link hovered) over the editor view: "
+          + ", ".join(f"{k}: {d} of {n} painted words differ"
+                      for k, (d, n, _) in ti.items())
+          + f"; {ms_ti:.3f} ms a draw_text_input, {ms_ld:.3f} ms a "
+          f"draw_landing (CUDA events) {card}")
+    phase_done("ui: text input and landing")
+
+    # ---- (c) the drag tracker ----
+    rays = []
+    screen_to_ray = pk.screen_to_ray
+
+    def spy(*args, **kwargs):
+        o, d = screen_to_ray(*args, **kwargs)
+        rays.append(d.device.type)
+        return o, d
+
+    worst_pos = worst_ang = 0.0
+    n_moves = 0
+    t_card = 0.0
+    pk.screen_to_ray = spy
+    try:
+        for seed in range(DRAG_SEEDS):
+            pos, basis = uc.drag_camera(SEED + seed)
+            cam = (torch.from_numpy(pos).to(dev),
+                   torch.from_numpy(basis).to(dev))
+            t0 = time.perf_counter()
+            got = uc.run_drags(ui, *cam, SEED + seed)
+            t_card += time.perf_counter() - t0
+            cards = len(rays)
+            want = uc.run_drags(ui, pos, basis, SEED + seed)
+            if set(rays[:cards]) != {dev.type} or set(rays[cards:]) != {"cpu"}:
+                _fail(f"ui drag tracker: rays cast on {set(rays[:cards])}")
+            del rays[:]
+            for (name, snap, a), (_, _, b) in zip(got, want):
+                for x, y in zip(a, b):
+                    n_moves += 1
+                    worst_pos = max(worst_pos, float(np.abs(
+                        x[0].astype(np.float64) - y[0]).max()))
+                    worst_ang = max(worst_ang, abs(x[1] - y[1]),
+                                    abs(x[3] - y[3]))
+                    if x[4] != y[4]:
+                        _fail(f"ui drag tracker {name}: mouse deltas")
+    finally:
+        pk.screen_to_ray = screen_to_ray
+    n_updates = n_moves - DRAG_SEEDS * len(uc.drag_cases(ui))
+    verdict = ("equal" if worst_ang == 0.0 else
+               f"within {ANGLE_TOL:g} rad" if worst_ang <= ANGLE_TOL
+               else "apart")
+    print(f"ui (c) drag tracker: {len(uc.drag_cases(ui))} pickers x "
+          f"{DRAG_SEEDS} cameras, {n_updates} updates with the camera on "
+          f"the card vs the CPU: largest position difference {worst_pos:.3g}"
+          f" (must be 0), angles {verdict} (largest difference "
+          f"{worst_ang:.3g} rad); {1e3 * t_card / n_updates:.3f} ms an "
+          f"update on the card (host clock) {card}")
+    if worst_pos or worst_ang > ANGLE_TOL:
+        _fail("ui drag tracker: the card's drags differ from the CPU's")
+    phase_done("ui: drag tracker")
+
+    # ---- (d) the import path through the main path's kernels ----
+    level = ts.cave_size_level(L)
+    rgba = uc.import_rgba(SEED)
+    floor = ts.TEXTURE_NAMES.index("FLOOR")
+    raster = {"raster_bin": 1, "raster_visibility": 1, "raster_resolve": 1}
+    base = None
+    for depth in (0, 1):
+        t0 = time.perf_counter()
+        dialog, tex = uc.imported_texture(texture, rgba, depth)
+        import_ms = (time.perf_counter() - t0) * 1e3
+        resized = texture.resize_to_target(rgba, uc.IMPORT_TARGET,
+                                           dialog.resize_mode)
+        t0 = time.perf_counter()
+        quantize.quantize_image(resized, uc.IMPORT_TARGET, uc.IMPORT_TARGET,
+                                depth=depth)
+        quant_ms = (time.perf_counter() - t0) * 1e3
+        words = tex.to_texture15()
+        keyed = int((words == 0).sum())
+        textures = ts.textures()
+        textures[floor] = (words, 0)
+        fn, args = entry.entry(level, n=N_IMPORT, device=dev,
+                               textures=textures, resolve=ts.resolver)
+        torch.cuda.synchronize()
+        reset_counts()
+        fbs = fn(*args)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {k: raster.get(k, 0) for k in counts}
+        if counts != want:
+            _fail(f"ui import ({depth}): launches {counts}, want {want}")
+        fn_c, args_c = entry.entry(level, n=N_IMPORT, device=cpu,
+                                   textures=textures, resolve=ts.resolver)
+        fbs_c = fn_c(*args_c)
+        diff = differing(fbs.color, fbs_c.color)
+        ddiff = differing(fbs.depth, fbs_c.depth)
+        if base is None:
+            fn0, args0 = entry.entry(level, n=N_IMPORT, device=dev,
+                                     textures=ts.textures(),
+                                     resolve=ts.resolver)
+            base = fn0(*args0).color
+        shown = differing(fbs.color, base)
+        print(f"ui (d) import at {4 * (depth + 1)} bpp: "
+              f"{rgba.shape[1]}x{rgba.shape[0]} -> {tex.width}x{tex.height}"
+              f", {len(tex.palette)} CLUT words, {keyed} transparent "
+              f"texels; entry.entry N={N_IMPORT} {HEIGHT}x{WIDTH}: launches "
+              f"{counts}, {diff} differing pixels and {ddiff} differing "
+              f"depth words card vs CPU, {shown} pixels differ from the "
+              f"checker floor's frame; import {import_ms:.3f} ms, "
+              f"quantize_image {quant_ms:.3f} ms (host clock) {card}")
+        if diff or ddiff or keyed == 0 or shown == 0:
+            _fail(f"ui import ({depth}): the card's frames differ from the "
+                  f"CPU's, or the texture has no keyed texel or is unseen")
+    phase_done("ui: texture import")
+
+    # ---- (e) storage ----
+    spawn = ts.spawn_point(level)
+    states = rollout.initial_states(level, spawn, N_STORE, device=dev)
+    data = checkpoint.save_bytes(states, metadata={"route": "all"})
+    path = "assets/userdata/fleet/states.npz"
+    local = storage.LocalStorage(os.path.join(out_dir, "storage"))
+    times = {}
+    with fake.serve() as (url, api):
+        http = storage.CloudStorage(HttpCloudBackend(
+            url, token_provider=lambda: fake.TOKEN))
+        routes = {"local": storage.Storage(local=local),
+                  "memory cloud": storage.Storage(
+                      local=local, cloud=storage.CloudStorage()),
+                  "HTTP cloud": storage.Storage(local=local, cloud=http)}
+        for name, s in routes.items():
+            staged = os.path.join(out_dir, "async", f"{name}.npz")
+            if not async_ops.save_async(staged, data).wait():
+                _fail(f"ui storage {name}: save_async")
+            blob = async_ops.load_async(staged).wait()
+            save = load = 0.0
+            for _ in range(UI_REPS):
+                t0 = time.perf_counter()
+                s.write(path, blob).wait()
+                t1 = time.perf_counter()
+                back = s.read(path).wait()
+                load += time.perf_counter() - t1
+                save += t1 - t0
+            restored = checkpoint.restore_bytes(back, rollout.initial_states(
+                level, spawn, N_STORE, device=dev))
+            words = sum(differing(getattr(restored, f), getattr(states, f))
+                        for f in states._fields)
+            on_card = all(getattr(restored, f).device.type == dev.type
+                          for f in states._fields)
+            times[name] = (1e3 * save / UI_REPS, 1e3 * load / UI_REPS)
+            if back != data or words or not on_card:
+                _fail(f"ui storage {name}: {words} state words differ")
+        stored = sorted(api.store)
+        big = checkpoint.save_bytes(rollout.initial_states(
+            level, spawn, N_STORE_BIG, device=dev))
+        refused = []
+        for cloud in (storage.CloudStorage(), http):
+            try:
+                cloud.write(path, big).wait()
+                refused.append(None)
+            except storage.StorageError as e:
+                refused.append(e.kind)
+    print(f"ui (e) storage: a checkpoint of {N_STORE} states, {len(data)} "
+          f"bytes, through async_ops and Storage, restored on the card bit "
+          f"for bit on every route; ms a save / load (host clock, "
+          f"{UI_REPS} round trips): "
+          + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b) in
+                      times.items())
+          + f"; the fake API held {stored}; the {N_STORE_BIG}-state "
+          f"checkpoint ({len(big)} bytes) refused by the memory and HTTP "
+          f"clouds: {refused} {card}")
+    if refused != ["FileTooLarge"] * 2 or stored != [path]:
+        _fail(f"ui storage: the oversize checkpoint was not refused "
+              f"({refused}) or the API holds {stored}")
+    phase_done("ui: storage")
 
 
 if __name__ == "__main__":

@@ -41,7 +41,14 @@ segments, pitch changes) equal their twins on the card, output and
 state, with the state carried; `render_song` and a 60 Hz `AudioStream`
 on the card equal the CPU render.  The game tick on the card stays
 within the CPU tick's tolerance of the CPU's over frames 1-3
-(tests/torch_tick_drift.py).
+(tests/torch_tick_drift.py).  The rest of ui/ (tests/torch_ui_cases.py):
+the full widget frame painted at 640x480, the text input and the landing
+page equal the CPU on every word; the drag tracker's pickers with the
+camera on the card equal the CPU's positions bit for bit and its angles
+within 1e-5 rad (atan2 differs by ulps between the libraries).  The
+imported texture (quantized at 4 and 8 bpp) on the main path
+(`entry.entry`) equals the CPU frame, and a checkpoint of card states
+goes through storage/ on three routes and restores bit for bit.
 """
 
 import numpy as np
@@ -1413,3 +1420,111 @@ def test_debug_views_card_match_cpu(env):
     assert int((want.color != color).sum()) > 5000
     assert torch.equal(got.color.cpu(), want.color)
     assert torch.equal(got.depth.cpu(), want.depth)
+
+
+def test_widget_frame_paint_matches_cpu(env):
+    import torch_ui_cases as uc
+    from bonnie32_tpu_torch import ui
+    from bonnie32_tpu_torch.types import FrameBuffers
+    _, dev, _ = env
+    ctx, _ = uc.widget_frame(ui, 0)
+    w, h = uc.FRAME_SIZE
+    r = np.random.default_rng(25)
+    color = torch.from_numpy((r.integers(0, 1 << 24, (2, h, w))
+                              | (255 << 24)).astype(np.uint32).view(np.int32))
+    depth = torch.full((2, h, w), 2.0)
+    got = ctx.paint(FrameBuffers(color.to(dev), depth.to(dev)))
+    want = ctx.paint(FrameBuffers(color.clone(), depth))
+    assert got.color.is_cuda
+    assert int((want.color != color).sum()) > 50000
+    assert torch.equal(got.color.cpu(), want.color)
+
+
+def test_text_input_and_landing_match_cpu(env):
+    import torch_ui_cases as uc
+    from bonnie32_tpu_torch import ui
+    from bonnie32_tpu_torch.types import FrameBuffers
+    _, dev, _ = env
+    color = torch.zeros((2, H, W), dtype=torch.int32)
+    depth = torch.zeros((2, H, W))
+    for scale in (1, 2):
+        got, trace = uc.text_input_calls(
+            ui, FrameBuffers(color.to(dev), depth.to(dev)), scale)
+        want, ctrace = uc.text_input_calls(
+            ui, FrameBuffers(color.clone(), depth.clone()), scale)
+        assert trace == ctrace and got.color.is_cuda
+        assert torch.equal(got.color.cpu(), want.color)
+    got, out = uc.landing_calls(ui, FrameBuffers(color.to(dev),
+                                                 depth.to(dev)), W, H)
+    want, cout = uc.landing_calls(ui, FrameBuffers(color.clone(),
+                                                   depth.clone()), W, H)
+    assert out == cout and out[1] is not None
+    assert torch.equal(got.color.cpu(), want.color)
+
+
+def test_drag_tracker_on_card_matches_cpu(env):
+    import torch_ui_cases as uc
+    from bonnie32_tpu_torch import ui
+    _, dev, _ = env
+    for seed in range(3):
+        pos, basis = uc.drag_camera(seed)
+        got = uc.run_drags(ui, torch.from_numpy(pos).to(dev),
+                           torch.from_numpy(basis).to(dev), seed)
+        want = uc.run_drags(ui, pos, basis, seed)
+        for (name, snap, a), (_, _, b) in zip(got, want):
+            for x, y in zip(a, b):
+                np.testing.assert_array_equal(x[0], y[0], name)
+                assert x[4] == y[4]
+                if snap != "none" or not name.startswith("circle"):
+                    assert (x[1], x[3]) == (y[1], y[3]), name
+                else:
+                    assert abs(x[1] - y[1]) <= 1e-5, name
+
+
+@pytest.mark.parametrize("depth", [0, 1])
+def test_imported_texture_on_card_matches_cpu(env, depth):
+    import torch_ui_cases as uc
+    from bonnie32_tpu_torch import entry, texture
+    level, dev, _ = env
+    _, tex = uc.imported_texture(texture, uc.import_rgba(0), depth)
+    textures = ts.textures()
+    textures[ts.TEXTURE_NAMES.index("FLOOR")] = (tex.to_texture15(), 0)
+    frames = {}
+    for d in (dev, torch.device("cpu")):
+        fn, args = entry.entry(level, n=N, device=d, textures=textures,
+                               resolve=ts.resolver)
+        frames[d.type] = fn(*args)
+    assert frames["cuda"].color.is_cuda
+    assert torch.equal(frames["cuda"].color.cpu(), frames["cpu"].color)
+    assert torch.equal(frames["cuda"].depth.cpu(), frames["cpu"].depth)
+
+
+def test_checkpoint_through_storage_on_card(env, tmp_path):
+    import torch_cloud_server as fake
+    from bonnie32_tpu_torch import checkpoint as ckpt
+    from bonnie32_tpu_torch import storage
+    from bonnie32_tpu_torch.storage.cloud import HttpCloudBackend
+    level, dev, _ = env
+    spawn = ts.spawn_point(level)
+    states = rollout.initial_states(level, spawn, 64, device=dev)
+    data = ckpt.save_bytes(states)
+    path = "assets/userdata/fleet/states.npz"
+    with fake.serve() as (url, _):
+        clouds = (None, storage.CloudStorage(),
+                  storage.CloudStorage(HttpCloudBackend(
+                      url, token_provider=lambda: fake.TOKEN)))
+        for cloud in clouds:
+            s = storage.Storage(local=storage.LocalStorage(str(tmp_path)),
+                                cloud=cloud)
+            s.write(path, data).wait()
+            back = ckpt.restore_bytes(s.read(path).wait(),
+                                      rollout.initial_states(
+                                          level, spawn, 64, device=dev))
+            for f in back._fields:
+                a, b = getattr(back, f), getattr(states, f)
+                assert a.is_cuda and torch.equal(a, b), f
+    big = ckpt.save_bytes(rollout.initial_states(level, spawn, 1024,
+                                                 device=dev))
+    with pytest.raises(storage.StorageError) as err:
+        storage.CloudStorage().write(path, big).take()
+    assert err.value.kind == "FileTooLarge"
